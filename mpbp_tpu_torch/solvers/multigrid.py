@@ -1,0 +1,356 @@
+"""Geometric multigrid for the pressure Schur block GtG and for the coupled
+velocity block F (port of `mpbp_tpu/solvers/multigrid.py`).
+
+Pressure MG: rediscretized coarse operators from the 2x2-averaged theta
+plane, weighted-Jacobi smoothing (damping 0.8), 2x2-mean restriction,
+piecewise-constant prolongation, a dense pseudo-inverse at the coarsest
+level, and mean projection (the periodic problem's constant nullspace).
+
+Velocity MG: V-cycles on F with face-centred MAC transfers (damping 0.7).
+The four velocity fields stay stacked as one (4, n, n) tensor
+[un, vn, us, vs]; every level's smoother and residual apply F through
+kernel K1 (`ops.cuda_stencil.f_apply`).
+
+Every level is built in f64 and then cast, and the coarsest pseudo-inverse
+is computed in f64 on the host and moved to the device once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from mpbp_tpu_torch.models.fields import MACGrid, PhaseFields
+from mpbp_tpu_torch.models.fused import make_f_apply_planes
+from mpbp_tpu_torch.models.multiphase import (VEL_FIELDS, MultiphaseOperator,
+                                              assemble_velocity_block,
+                                              divergence_operator,
+                                              gradient_operator)
+from mpbp_tpu_torch.ops.stencil import StencilOperator, shift
+
+
+def _pinv(op64: StencilOperator, dtype: torch.dtype,
+          device: torch.device) -> torch.Tensor:
+    """Dense pseudo-inverse of a (small) coarsest-level operator: f64 on the
+    host, cast and moved once."""
+    return torch.as_tensor(np.linalg.pinv(op64.to_dense()), dtype=dtype,
+                           device=device)
+
+
+def _phase_fields_from_cell(grid: MACGrid, T: torch.Tensor) -> PhaseFields:
+    """PhaseFields from an explicit cell-centred theta plane (coarse levels
+    have no closed-form theta): pointwise face values are replaced by face
+    averages."""
+    xface = 0.5 * (shift(T, 0, -1) + T)
+    yface = 0.5 * (shift(T, -1, 0) + T)
+    node = 0.25 * (shift(T, -1, -1) + shift(T, -1, 0) + shift(T, 0, -1) + T)
+    return PhaseFields(cell=T, xface=xface, yface=yface, node=node,
+                       xface_pt=xface, yface_pt=yface)
+
+
+def _cast_phase_fields(ph: PhaseFields, dtype) -> PhaseFields:
+    return PhaseFields(*(getattr(ph, f.name).to(dtype)
+                         for f in dataclasses.fields(PhaseFields)))
+
+
+def _cast_op(op: StencilOperator, dtype) -> StencilOperator:
+    return StencilOperator(op.out_fields, op.in_fields, {
+        k: {off: c.to(dtype) for off, c in om.items()}
+        for k, om in op.terms.items()}, op.shape_grid)
+
+
+def _gtg_from_theta(T_n: torch.Tensor, n: int, d_p: float, d_div: float,
+                    dtype) -> StencilOperator:
+    """Pressure Schur stencil (-D) G for both phases from the theta plane."""
+    grid = MACGrid(n, dtype=dtype, device=T_n.device)
+    ph_n = _phase_fields_from_cell(grid, T_n)
+    ph_s = _phase_fields_from_cell(grid, 1.0 - T_n)
+    G = d_p * (gradient_operator(ph_n, grid, "u", "v", "p")
+               + gradient_operator(ph_s, grid, "u2", "v2", "p"))
+    D = (divergence_operator(ph_n, grid, "u", "v", "p")
+         + divergence_operator(ph_s, grid, "u2", "v2", "p"))
+    GtG = (d_div * D) @ G
+    return StencilOperator(("p",), ("p",), GtG.terms, grid.shape)
+
+
+def restrict_cell(x: torch.Tensor) -> torch.Tensor:
+    """Full-weighting 2x2 cell average: (..., n, n) -> (..., n/2, n/2)."""
+    n = x.shape[-1]
+    return x.reshape(*x.shape[:-2], n // 2, 2, n // 2, 2).mean(dim=(-3, -1))
+
+
+def prolong_cell(x: torch.Tensor) -> torch.Tensor:
+    """Piecewise-constant prolongation: (..., n/2, n/2) -> (..., n, n)."""
+    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
+@dataclasses.dataclass
+class MGLevel:
+    n: int
+    op: StencilOperator
+    diag: torch.Tensor                 # (n, n) stencil diagonal
+    coarse_pinv: torch.Tensor | None
+    # difference-form apply built from f64 planes (see _scalar_flux_apply)
+    flux_apply: Callable
+
+    def apply_p(self, x: torch.Tensor) -> torch.Tensor:
+        return self.flux_apply(x)
+
+
+def _scalar_flux_apply(op64: StencilOperator, dtype) -> Callable:
+    """Difference-form apply for a single-field ("p") stencil from f64
+    coefficient planes: out = sum_off c*(shift(x)-x) + rowsum*x, with the
+    row sum accumulated exactly in f64 before the cast. In f32 the
+    coefficient-form apply loses the near-kernel (weights ~n^2 cancel to ~0
+    on smooth modes), which floors the pressure multigrid."""
+    offmap64 = op64.terms[("p", "p")]
+    rowsum = None
+    for c in offmap64.values():
+        c64 = c.to(torch.float64)
+        rowsum = c64 if rowsum is None else rowsum + c64
+    rowsum = rowsum.to(dtype)
+    planes = {off: c.to(dtype) for off, c in offmap64.items()
+              if off != (0, 0)}
+
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        acc = rowsum * x
+        for (dr, dc), c in planes.items():
+            acc = acc + c * (shift(x, dr, dc) - x)
+        return acc
+
+    return apply
+
+
+def build_pressure_mg(mop: MultiphaseOperator, n_coarsest: int = 8,
+                      dtype=None) -> list[MGLevel]:
+    """Level hierarchy for the GtG pressure block of an assembled system,
+    on the operator's device."""
+    dtype = dtype or mop.phase_n.cell.dtype
+    d_p, d_div = mop.params["d_p"], mop.params["d_div"]
+    levels: list[MGLevel] = []
+    T = mop.phase_n.cell.to(torch.float64)
+    n = mop.grid.n
+    while True:
+        # build in f64, then cast: f32-assembled planes carry rounding
+        # ~eps*max|coef| that makes the (exactly zero) row sums unrecoverable
+        op64 = _gtg_from_theta(T, n, d_p, d_div, torch.float64)
+        op = _cast_op(op64, dtype)
+        diag = op.terms[("p", "p")][(0, 0)]
+        flux = _scalar_flux_apply(op64, dtype)
+        if n <= n_coarsest or n % 2 != 0:
+            levels.append(MGLevel(n, op, diag, _pinv(op64, dtype, T.device),
+                                  flux))
+            break
+        levels.append(MGLevel(n, op, diag, None, flux))
+        T = restrict_cell(T)
+        n //= 2
+    return levels
+
+
+def _smooth(level: MGLevel, b, x, sweeps: int, damping: float):
+    inv_d = damping / level.diag
+    for _ in range(sweeps):
+        x = x + inv_d * (b - level.apply_p(x))
+    return x
+
+
+def v_cycle(levels: list[MGLevel], b: torch.Tensor, x: torch.Tensor,
+            lev: int = 0, pre: int = 2, post: int = 2,
+            damping: float = 0.8) -> torch.Tensor:
+    level = levels[lev]
+    if level.coarse_pinv is not None:
+        n = level.n
+        return torch.matmul(level.coarse_pinv, b.reshape(-1)).reshape(n, n)
+    x = _smooth(level, b, x, pre, damping)
+    r = b - level.apply_p(x)
+    rc = restrict_cell(r)
+    ec = v_cycle(levels, rc, torch.zeros_like(rc), lev + 1, pre, post,
+                 damping)
+    # the coarse operator is rediscretized from the restricted theta, so
+    # its 1/H^2 scaling already matches the mean-restricted residual
+    x = x + prolong_cell(ec)
+    return _smooth(level, b, x, post, damping)
+
+
+@dataclasses.dataclass(eq=False)
+class MGPressureSolver:
+    """Fixed-cycle multigrid inner solve for GtG (legal under a flexible
+    outer Krylov method)."""
+
+    levels: list[MGLevel]
+    cycles: int = 2
+    project_mean: bool = True
+
+    @classmethod
+    def of(cls, mop: MultiphaseOperator, cycles: int = 2,
+           n_coarsest: int = 8) -> "MGPressureSolver":
+        return cls(build_pressure_mg(mop, n_coarsest), cycles)
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        """Accepts the flat (n^2,) or the grid (n, n) layout; the output
+        shape matches the input."""
+        n = self.levels[0].n
+        b = v.reshape(n, n)
+        if self.project_mean:
+            b = b - torch.mean(b)
+        x = torch.zeros_like(b)
+        for _ in range(self.cycles):
+            x = v_cycle(self.levels, b, x)
+        if self.project_mean:
+            x = x - torch.mean(x)
+        return x.reshape(v.shape)
+
+
+# ---------------------------------------------------------------------------
+# Velocity-block multigrid: V-cycles on the coupled F block, face-centred
+# MAC transfers. Stacked layout [un, vn, us, vs]: x-face fields at 0 and 2,
+# y-face fields at 1 and 3, so strided views select them (an index list
+# would copy its indices to the device on every transfer).
+# ---------------------------------------------------------------------------
+_XF = slice(0, 4, 2)
+_YF = slice(1, 4, 2)
+
+
+def restrict_xface(u: torch.Tensor) -> torch.Tensor:
+    """x-face restriction: coarse face (R, C) = mean of the two coincident
+    fine faces (2R, 2C), (2R+1, 2C)."""
+    return 0.5 * (u[..., 0::2, 0::2] + u[..., 1::2, 0::2])
+
+
+def prolong_xface(uc: torch.Tensor) -> torch.Tensor:
+    """x-face prolongation: coincident fine faces copy the coarse value;
+    odd-column faces take the mean of the two adjacent coarse columns."""
+    right = 0.5 * (uc + torch.roll(uc, -1, dims=-1))
+    fine = torch.stack([uc, right], dim=-1).flatten(-2)   # interleave cols
+    return fine.repeat_interleave(2, dim=-2)
+
+
+def restrict_yface(v: torch.Tensor) -> torch.Tensor:
+    """y-face restriction (transpose of x-face): coarse face (R, C) = mean of
+    the fine faces (2R, 2C), (2R, 2C+1)."""
+    return 0.5 * (v[..., 0::2, 0::2] + v[..., 0::2, 1::2])
+
+
+def prolong_yface(vc: torch.Tensor) -> torch.Tensor:
+    down = 0.5 * (vc + torch.roll(vc, -1, dims=-2))
+    fine = torch.stack([vc, down], dim=-2).flatten(-3, -2)  # interleave rows
+    return fine.repeat_interleave(2, dim=-1)
+
+
+def _restrict_vel(x: torch.Tensor) -> torch.Tensor:
+    nc = x.shape[-1] // 2
+    out = x.new_empty((4, nc, nc))
+    out[_XF] = restrict_xface(x[_XF])
+    out[_YF] = restrict_yface(x[_YF])
+    return out
+
+
+def _prolong_vel(x: torch.Tensor) -> torch.Tensor:
+    nf = 2 * x.shape[-1]
+    out = x.new_empty((4, nf, nf))
+    out[_XF] = prolong_xface(x[_XF])
+    out[_YF] = prolong_yface(x[_YF])
+    return out
+
+
+@dataclasses.dataclass
+class VelLevel:
+    n: int
+    op: StencilOperator            # F on (un, vn, us, vs)
+    diag: torch.Tensor             # (4, n, n) stencil diagonals
+    coarse_pinv: torch.Tensor | None
+    # flux-form apply through kernel K1: required for f32 hierarchies, where
+    # the coefficient-plane apply's +-O(eta/dx^2) cancellations bury F's
+    # near-kernel in roundoff
+    flux_apply: Callable
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return self.flux_apply(x)
+
+
+def build_velocity_mg(mop: MultiphaseOperator, n_coarsest: int = 8,
+                      dtype=None) -> list[VelLevel]:
+    """Level hierarchy for the coupled velocity block F, rediscretized from
+    2x2-averaged theta planes, on the operator's device."""
+    dtype = dtype or mop.phase_n.cell.dtype
+    p = mop.params
+    device = mop.phase_n.cell.device
+    levels: list[VelLevel] = []
+    # built in f64 and cast per level: f32-assembled planes carry rounding
+    # ~eps*eta/dx^2 that corrupts row sums and the coarse pseudo-inverse
+    T = mop.phase_n.cell.to(torch.float64)
+    n = mop.grid.n
+    while True:
+        grid = MACGrid(n, dtype=torch.float64, device=device)
+        if not levels:
+            # level 0 uses the exact fine-level fields (pointwise face
+            # thetas), so the finest smoother/residual target the true F
+            ph_n = _cast_phase_fields(mop.phase_n, torch.float64)
+            ph_s = _cast_phase_fields(mop.phase_s, torch.float64)
+        else:
+            ph_n = _phase_fields_from_cell(grid, T)
+            ph_s = _phase_fields_from_cell(grid, 1.0 - T)
+        F64 = assemble_velocity_block(ph_n, ph_s, grid, p["c"], p["d"],
+                                      p["xi"], p["eta_n"], p["eta_s"])
+        F = _cast_op(F64, dtype)
+        diag = torch.stack([F.terms[(f, f)][(0, 0)] for f in VEL_FIELDS])
+        flux = make_f_apply_planes(ph_n.cell.to(dtype).contiguous(),
+                                   ph_n.xface_pt.to(dtype).contiguous(),
+                                   ph_n.yface_pt.to(dtype).contiguous(),
+                                   p, grid.dx, grid.dy)
+        if n <= n_coarsest or n % 2 != 0:
+            levels.append(VelLevel(n, F, diag, _pinv(F64, dtype, device),
+                                   flux))
+            break
+        levels.append(VelLevel(n, F, diag, None, flux))
+        T = restrict_cell(T)
+        n //= 2
+    return levels
+
+
+def _vel_smooth(level: VelLevel, b: torch.Tensor, x: torch.Tensor,
+                sweeps: int, damping: float) -> torch.Tensor:
+    inv_d = damping / level.diag
+    for _ in range(sweeps):
+        x = x + inv_d * (b - level.apply(x))
+    return x
+
+
+def vel_v_cycle(levels: list[VelLevel], b: torch.Tensor, x: torch.Tensor,
+                lev: int = 0, pre: int = 2, post: int = 2,
+                damping: float = 0.7) -> torch.Tensor:
+    level = levels[lev]
+    if level.coarse_pinv is not None:
+        return torch.matmul(level.coarse_pinv, b.reshape(-1)).reshape(b.shape)
+    x = _vel_smooth(level, b, x, pre, damping)
+    r = b - level.apply(x)
+    rc = _restrict_vel(r)
+    ec = vel_v_cycle(levels, rc, torch.zeros_like(rc), lev + 1, pre, post,
+                     damping)
+    x = x + _prolong_vel(ec)
+    return _vel_smooth(level, b, x, post, damping)
+
+
+@dataclasses.dataclass(eq=False)
+class MGVelocitySolver:
+    """Fixed-cycle velocity-block MG on flat (4 n^2,) or stacked (4, n, n)
+    velocity vectors; the output shape matches the input."""
+
+    levels: list[VelLevel]
+    cycles: int = 2
+
+    @classmethod
+    def of(cls, mop: MultiphaseOperator, cycles: int = 2,
+           n_coarsest: int = 8) -> "MGVelocitySolver":
+        return cls(build_velocity_mg(mop, n_coarsest), cycles)
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        n = self.levels[0].n
+        b = v.reshape(4, n, n)
+        x = torch.zeros_like(b)
+        for _ in range(self.cycles):
+            x = vel_v_cycle(self.levels, b, x)
+        return x.reshape(v.shape)
