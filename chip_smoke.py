@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, one status line each; any failure raises and exits non-zero:
   1. device  - a CUDA device is required; prints its name and
                `nvidia-smi --query-gpu=name,power.limit`.
-  2. build   - nvcc builds csrc/fused_stencil.cu for sm_90a.
+  2. build   - nvcc builds csrc/fused_stencil.cu and csrc/sparse_spmv.cu
+               for sm_90a, one nvcc per source, started together.
   3. kernels - K1 (f_apply) and K2 (a_apply) against their plain PyTorch
                versions at n=512 and n=2048, f32 and f64, on random theta
                in [0.1, 0.9] and a random state (numpy seed 0); kernel and
@@ -19,6 +20,23 @@ Phases, one status line each; any failure raises and exits non-zero:
   7. profile - two outer iterations of the warm solve under torch.profiler:
                device busy time and idle share, K1/K2 device totals, the
                busiest kernels.
+  8. sparse_kernels - K5/K6 (dia_spmv), K7 (ell_spmv, plain and with the
+               Jacobi epilogue) and K8 (ell_spmm) against their plain
+               versions, f32 and f64, at benchmarks/kernels_tpu.py's
+               sizes; times, GB/s and whether the operand fits in L2;
+               then the BandedELL SpMM API run as a path, K8 compared on
+               that BandedELL's own arrays.
+  9. ilu_slice - path (a): the n=64 lsc_ilut solve with Neumann triangular
+               solves (every sweep one K7 launch), cold then warm; then
+               ilu_layers: K7 against its plain version on the four
+               triangles that path sweeps, and a layer split with
+               synchronized timers.
+ 10. ilu_level - the CLI default: n=16 lsc_ilut with the exact level apply
+               (plain PyTorch), with the launches of one outer iteration.
+ 11. dia_lsc - path (b): LSC built from DIA matrices alone at n=128, FGMRES
+               on A.to_dia(); every matvec is K5/K6, which is then held
+               against its plain version on each of the path's six DIA
+               matrices.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -38,14 +56,25 @@ from mpbp_tpu_torch.drivers import (a_matvec, lsc_inners, pack_fields,
 from mpbp_tpu_torch.models import mms
 from mpbp_tpu_torch.models.multiphase import (make_multiphase_operator,
                                               operator_from_numpy)
-from mpbp_tpu_torch.ops import _build, cuda_stencil
+from mpbp_tpu_torch.ops import _build, cuda_dia, cuda_ell, cuda_stencil, ilu
+from mpbp_tpu_torch.ops.cuda_ell import BandedELL
+from mpbp_tpu_torch.ops.dia import DIAMatrix
+from mpbp_tpu_torch.ops.spgemm import lsc_products_device
 from mpbp_tpu_torch.solvers import gmres as krylov
+from mpbp_tpu_torch.solvers import preconditioners as pcs
 from mpbp_tpu_torch.solvers.preconditioners import make_lsc_pc_mixed
 from mpbp_tpu_torch.utils.norms import norms_report
 
-SOURCE = "mpbp_tpu_torch/csrc/fused_stencil.cu"
+SOURCE = {"f_apply": "mpbp_tpu_torch/csrc/fused_stencil.cu",
+          "a_apply": "mpbp_tpu_torch/csrc/fused_stencil.cu",
+          "dia_spmv": "mpbp_tpu_torch/csrc/sparse_spmv.cu",
+          "ell_spmv": "mpbp_tpu_torch/csrc/sparse_spmv.cu",
+          "ell_spmm": "mpbp_tpu_torch/csrc/sparse_spmv.cu"}
 REPLACES = {"f_apply": "mpbp_tpu/ops/pallas_stencil.py:518",
-            "a_apply": "mpbp_tpu/ops/pallas_stencil.py:490"}
+            "a_apply": "mpbp_tpu/ops/pallas_stencil.py:490",
+            "dia_spmv": "mpbp_tpu/ops/pallas_dia.py:89 (K5) and :256 (K6)",
+            "ell_spmv": "mpbp_tpu/ops/pallas_ell.py:173",
+            "ell_spmm": "mpbp_tpu/ops/pallas_ell.py:241"}
 NF = {"f_apply": 4, "a_apply": 5}
 # error bounds relative to max|plain|: FMA contraction and operation order
 BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -53,6 +82,22 @@ SLICE = dict(n=512, c=1, d=-1, xi=1, eta_n=100, eta_s=1, pc="lsc_mg_full",
              precision="hybrid", tol=1e-10, maxiter=40, inner_tol=1e-4,
              inner_iters=40)
 L2_DISCRETIZATION = 2.3039e-5     # the MMS discretization error at 512^2
+# path (a): the reference-parity ILU solve with Neumann triangular solves;
+# the JAX package takes 275 iterations to L2 1.47103e-3 (f64, CPU)
+ILU_SLICE = dict(n=64, c=1, d=-1, xi=1, eta_n=100, eta_s=1, pc="lsc_ilut",
+                 precision="full", ilut_apply="neumann", ilut_sweeps=24,
+                 tol=1e-8, maxiter=320)
+ILU_SLICE_L2, ILU_SLICE_MAX_ITERS = 1.47103e-3, 290
+# the CLI default at n=16: exact level apply, 45 iterations, L2 2.27e-2
+ILU_LEVEL = dict(n=16, eta_n=100, pc="lsc_ilut")
+ILU_LEVEL_ITERS, ILU_LEVEL_L2 = 45, 2.27e-2
+# path (b): LSC from DIA matrices at n=128; the JAX package takes 34
+# iterations to L2 3.68351e-4 (it does not converge at n=256 with these
+# inner settings)
+DIA_LSC_N, DIA_LSC_L2, DIA_LSC_MAX_ITERS = 128, 3.68351e-4, 40
+# sparse_kernels sizes: the multiphase A (and G) as DIA, GtG's ILU factor
+# and GtG as ELL, the SpMM block width
+SPARSE_DIA_N, SPARSE_ELL_N, SPARSE_K = (512, 1024), 256, 16
 
 
 class SmokeFailure(RuntimeError):
@@ -106,9 +151,12 @@ def phase_device() -> tuple[str, str]:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.load()
+    libs = _build.build_all()
+    for stem in libs:
+        _build.load(stem)
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
-        nvcc=_build.find_nvcc(), library=_build.library_path().name)
+        nvcc=_build.find_nvcc(),
+        libraries=",".join(p.name for p in libs.values()))
 
 
 def phase_kernels(dev) -> dict:
@@ -254,46 +302,408 @@ def phase_layers(dev) -> None:
         outer_arnoldi_s=f"{arnoldi:.4f}", calls=json.dumps(calls))
 
 
-def phase_profile(dev) -> None:
-    """Device busy time of a window of the warm solve (its first two outer
-    iterations; each is the same PC apply, and a whole solve gives the
-    profiler ~1e6 events to sort) under torch.profiler: the sum of device
-    self time over all kernels, the K1/K2 totals, and the busiest kernels.
-    The profiler slows the host, so the idle share is taken against the
-    same window's unprofiled wall time."""
+def profile_window(phase: str, run, kernels: dict, top: int = 0) -> int:
+    """Device busy time of `run()` under torch.profiler: the sum of device
+    self time over all kernels, the totals of the named kernels ({label:
+    name pattern}) and the `top` busiest kernels. The profiler slows the
+    host, so the idle share is taken against an unprofiled run's wall
+    time. Returns the window's kernel launches (0: not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
-    window = dict(SLICE, maxiter=2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    solve_multiphase(**window, device=dev)
+    run()
     torch.cuda.synchronize()
-    warm_seconds = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        solve_multiphase(**window, device=dev)
+        run()
         torch.cuda.synchronize()
-    device_events = [e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in device_events)
-    if busy_us == 0:
-        say("profile", device_busy="not measured (no device events)")
-        return
-    k_us = {"f32_K1": "fused_stencil_kernel<float, 4>",
-            "f64_K1": "fused_stencil_kernel<double, 4>",
-            "f64_K2": "fused_stencil_kernel<double, 5>"}
-    per = {k: sum(e.self_device_time_total for e in device_events
-                  if pat in e.key) / 1e6 for k, pat in k_us.items()}
-    top = sorted(device_events, key=lambda e: -e.self_device_time_total)[:8]
-    say("profile", window="2 outer iterations",
-        device_busy_s=f"{busy_us / 1e6:.4f}",
-        wall_s=f"{warm_seconds:.4f}",
-        idle_share=f"{1 - busy_us / 1e6 / warm_seconds:.3f}",
-        kernel_launches=sum(e.count for e in device_events),
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if busy == 0:
+        say(phase, device_busy="not measured (no device events)")
+        return 0
+    launches = sum(e.count for e in events)
+    per = {k: sum(e.self_device_time_total for e in events
+                  if pat in e.key) / 1e6 for k, pat in kernels.items()}
+    say(phase, device_busy_s=f"{busy:.4f}", wall_s=f"{wall:.4f}",
+        idle_share=f"{1 - busy / wall:.3f}", kernel_launches=launches,
         **{f"{k}_s": f"{v:.4f}" for k, v in per.items()})
-    for e in top:
-        say("profile", kernel=repr(e.key[:70]), count=e.count,
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        say(phase, kernel=repr(e.key[:70]), count=e.count,
             device_s=f"{e.self_device_time_total / 1e6:.4f}")
+    return launches
+
+
+def phase_profile(dev) -> None:
+    """A window of the warm slice solve, its first two outer iterations
+    (each is the same PC apply; a whole solve gives the profiler ~1e6
+    events to sort): device busy time, idle share, K1/K2 totals and the
+    busiest kernels."""
+    window = dict(SLICE, maxiter=2)
+    say("profile", window="2 outer iterations")
+    profile_window(
+        "profile", lambda: solve_multiphase(**window, device=dev),
+        {"f32_K1": "fused_stencil_kernel<float, 4>",
+         "f64_K1": "fused_stencil_kernel<double, 4>",
+         "f64_K2": "fused_stencil_kernel<double, 5>"}, top=8)
+
+
+def _compare(kernel: str, label: str, dtype, kern, ref, nbytes: int,
+             phase: str = "sparse_kernels") -> dict:
+    """Hold one kernel call against its plain version, then time both. The
+    rate is tagged `resident=L2` when the bytes the kernel moves fit in the
+    card's L2 (repeated calls then read L2, not HBM), else `HBM`."""
+    got, want = kern(), ref()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    tag = "f32" if dtype == torch.float32 else "f64"
+    check(bool(torch.isfinite(got).all()),
+          f"{kernel} {label} {tag}: non-finite output")
+    check(err <= BOUND[dtype] * scale,
+          f"{kernel} {label} {tag}: max|kernel-plain|={err:.3e} > "
+          f"{BOUND[dtype]:.0e}*{scale:.3e}")
+    ms, plain_ms = median_ms(kern), median_ms(ref)
+    gbs = nbytes / (ms * 1e-3) / 1e9
+    l2 = getattr(torch.cuda.get_device_properties(got.device),
+                 "L2_cache_size", 0)
+    resident = ("not known" if not l2 else "L2" if nbytes <= l2 else "HBM")
+    say(phase, kernel=f"{kernel}_{tag}", case=repr(label),
+        max_abs_err=f"{err:.3e}", max_abs_ref=f"{scale:.3e}",
+        ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", gb_per_s=f"{gbs:.1f}",
+        operand_mb=f"{nbytes / 1e6:.1f}", resident=resident)
+    return dict(err=err, scale=scale, ms=ms, plain_ms=plain_ms, gbs=gbs)
+
+
+def compare_dia(phase: str, mats: dict, rng) -> dict:
+    """K5/K6 against its plain version on each DIA matrix of `mats`
+    ({label: f64 DIAMatrix}), f64 and f32. GB/s counts (K+2)N elements:
+    K min(nrows, ncols) + nrows + ncols, since the kernel reads no data
+    for the rows past ncols of a tall matrix."""
+    res = {}
+    for label, A64 in mats.items():
+        nrows, ncols = A64.shape
+        x64 = torch.as_tensor(rng.normal(size=ncols), device=A64.data.device)
+        for dtype in (torch.float64, torch.float32):
+            A = DIAMatrix(A64.shape, A64.offsets, A64.data.to(dtype))
+            x = x64.to(dtype)
+            nbytes = (len(A.offsets) * min(nrows, ncols) + nrows + ncols) \
+                * x.element_size()
+            res[(label, dtype)] = _compare(
+                "dia_spmv", f"{label} ({nrows}x{ncols}, K={len(A.offsets)})",
+                dtype, lambda: cuda_dia.dia_spmv(A, x),
+                lambda: cuda_dia.dia_spmv_reference(A, x), nbytes, phase)
+    return res
+
+
+def compare_sweeps(phase: str, factors: dict, rng) -> dict:
+    """K7 in its Jacobi-epilogue mode, the mode of every Neumann sweep,
+    against its plain version on each triangle of `factors` ({label:
+    NeumannTriSolve}, f64), f64 and f32. GB/s counts W N (elt + 4 B) +
+    4 N elements (x, b, inv_d, y)."""
+    res = {}
+    for label, tri in factors.items():
+        W, N = tri.strict.cols.shape
+        x64, b64 = (torch.as_tensor(rng.normal(size=N),
+                                    device=tri.diag.device)
+                    for _ in range(2))
+        for dtype in (torch.float64, torch.float32):
+            cols, vals = tri.strict.cols, tri.strict.vals.to(dtype)
+            x, b = x64.to(dtype), b64.to(dtype)
+            inv_d = 1.0 / tri.diag.to(dtype)
+            elt = x.element_size()
+            res[(label, dtype)] = _compare(
+                "ell_spmv", f"{label} (N={N}, W={W}), epilogue", dtype,
+                lambda: cuda_ell.ell_spmv(cols, vals, x, b=b, inv_d=inv_d),
+                lambda: cuda_ell.ell_spmv_reference(cols, vals, x, b, inv_d),
+                W * N * (elt + 4) + 4 * N * elt, phase)
+    return res
+
+
+def phase_sparse_kernels(dev) -> dict:
+    """K5-K8 against their plain versions at benchmarks/kernels_tpu.py's
+    sizes, as timing rows (the paths' own operands are compared in phases
+    ilu_layers and dia_lsc): DIA on A.to_dia() at n=512 (N=1,310,720,
+    K=35) and n=1024 (N=5,242,880) and on the rectangular, signed-offset G
+    at n=512; ELL on GtG's ILUT(100, 1e-3) U factor at n=256 (N=65,536),
+    plain and with the epilogue; then the BandedELL SpMM API run as a path
+    (GtG at n=256, k=16), K8 compared on that BandedELL's own arrays. GB/s
+    counts ELL as W N (elt + 4 B) + 2N elements (4N with the epilogue's
+    b and inv_d) and SpMM as
+    W N (elt + 4 B) + 2 N k elements."""
+    rng = np.random.default_rng(0)
+    res = {}
+    dias = {}
+    for n in SPARSE_DIA_N:
+        op = make_multiphase_operator(n, eta_n=100.0, device=dev)
+        dias[f"A n={n}"] = op.A.to_dia()
+        if n == SPARSE_DIA_N[0]:
+            dias[f"G n={n} (rectangular)"] = DIAMatrix.from_csr(
+                op.G.to_csr(drop_tol=0.0), periodic=False)
+        del op
+    compare_dia("sparse_kernels", dias, rng)
+    del dias
+
+    op = make_multiphase_operator(SPARSE_ELL_N, eta_n=100.0, device=dev)
+    gtg = pcs.lsc_products(op)[0].to_csr(drop_tol=1e-14)
+    del op
+    t0 = time.perf_counter()
+    upper = ilu.ILUPreconditioner.ilut(gtg, fill=100, tau=1e-3,
+                                       apply="neumann").upper
+    say("sparse_kernels",
+        case=f"GtG n={SPARSE_ELL_N} ILUT(100, 1e-3) U factor",
+        rows=upper.n, width=upper.strict.width,
+        host_ilut_s=f"{time.perf_counter() - t0:.2f}")
+    N, W = upper.n, upper.strict.width
+    bell = BandedELL.from_csr(gtg)
+    k = SPARSE_K
+    b64, x64 = (torch.as_tensor(rng.normal(size=N), device=dev)
+                for _ in range(2))
+    X64 = torch.as_tensor(rng.normal(size=(N, k)), device=dev)
+    for dtype in (torch.float32, torch.float64):
+        cols, vals = upper.strict.cols, upper.strict.vals.to(dtype)
+        x, b = x64.to(dtype), b64.to(dtype)
+        inv_d = 1.0 / upper.diag.to(dtype)
+        elt = x.element_size()
+        nbytes = W * N * (elt + 4) + 2 * N * elt
+        res[("ell_spmv", "U", dtype)] = _compare(
+            "ell_spmv", f"GtG n={SPARSE_ELL_N} ILUT U factor", dtype,
+            lambda: cuda_ell.ell_spmv(cols, vals, x),
+            lambda: cuda_ell.ell_spmv_reference(cols, vals, x), nbytes)
+        res[("ell_spmv", "U epilogue", dtype)] = _compare(
+            "ell_spmv", "U factor, Jacobi epilogue", dtype,
+            lambda: cuda_ell.ell_spmv(cols, vals, x, b=b, inv_d=inv_d),
+            lambda: cuda_ell.ell_spmv_reference(cols, vals, x, b, inv_d),
+            nbytes + 2 * N * elt)
+        # K8 on the arrays BandedELL.matmat hands it below
+        scols, svals = bell.ell.cols, bell.ell.vals.to(dtype)
+        X = X64.to(dtype)
+        nbytes = bell.ell.width * N * (elt + 4) + 2 * N * k * elt
+        res[("ell_spmm", "GtG", dtype)] = _compare(
+            "ell_spmm", f"BandedELL of GtG n={SPARSE_ELL_N} k={k}", dtype,
+            lambda: cuda_ell.ell_spmm(scols, svals, X),
+            lambda: cuda_ell.ell_spmm_reference(scols, svals, X), nbytes)
+
+    # the layer's SpMM API as a path: GtG applied to a block of k vectors
+    # through BandedELL, with the counts of that run alone
+    torch.cuda.synchronize()
+    _reset_counts()
+    Y = bell.matmat(X64)
+    torch.cuda.synchronize()
+    launches = dict(cuda_ell.LAUNCHES)
+    want = gtg.matvec(X64[:, -1])
+    check(float((Y[:, -1] - want).abs().max())
+          <= BOUND[torch.float64] * float(want.abs().max()),
+          "BandedELL.matmat disagrees with the CSR matvec")
+    check(launches["ell_spmm"] > 0, "BandedELL.matmat did not launch K8")
+    say("sparse_kernels",
+        path=f"BandedELL.matmat (GtG n={SPARSE_ELL_N}, k={k})",
+        bands=len(bell.offsets), total_width=bell.total_width,
+        launches=json.dumps(launches))
+    res["spmm_path_launches"] = launches["ell_spmm"]
+    return res
+
+
+def _reset_counts() -> None:
+    for counts in (cuda_stencil.LAUNCHES, cuda_dia.LAUNCHES,
+                   cuda_ell.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def phase_ilu_slice(dev) -> dict:
+    """Path (a): solve_multiphase(lsc_ilut, neumann) at n=64, cold (host
+    ILUT factorization included) then warm, each with its own counts."""
+    check(ilu.have_native(),
+          "the native ILUT library did not build (g++); its pure-Python "
+          "fallback would take hours at n=64")
+    n = ILU_SLICE["n"]
+    runs = {}
+    for label in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        rep = solve_multiphase(**ILU_SLICE, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {"ell_spmv": cuda_ell.LAUNCHES["ell_spmv"],
+                    "a_apply": cuda_stencil.LAUNCHES["a_apply"]}
+        true_res = rep.params["true_relres"]
+        l2 = rep.error_norms["l2"]
+        say("ilu_slice", run=label, iters=rep.iters,
+            relres=f"{rep.relres:.3e}", true_relres=f"{true_res:.3e}",
+            l2=f"{l2:.6e}", seconds=f"{secs:.3f}",
+            launches=json.dumps(launches),
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        check(rep.converged, f"ilu {label} did not converge: {rep.status}")
+        check(true_res < 1e-8, f"ilu true relres {true_res:.3e} >= 1e-8")
+        check(rep.iters <= ILU_SLICE_MAX_ITERS,
+              f"ilu {rep.iters} iterations > {ILU_SLICE_MAX_ITERS}")
+        check(abs(l2 - ILU_SLICE_L2) <= 0.01 * ILU_SLICE_L2,
+              f"ilu L2 {l2:.6e} not within 1% of {ILU_SLICE_L2}")
+        check(tuple(rep.x.shape) == (5 * n * n,)
+              and bool(torch.isfinite(rep.x).all()),
+              "ilu solution has the wrong shape or non-finite values")
+        for key, v in launches.items():
+            check(v > 0, f"kernel {key} was not launched by the ilu solve")
+        runs[label] = dict(seconds=secs, launches=launches, iters=rep.iters)
+    return runs
+
+
+def phase_ilu_layers(dev) -> dict:
+    """Path (a) once more, assembled from its parts (the driver's
+    lsc_inners, make_lsc_pc and a_matvec on the same operator): the setup
+    time of F's ILUT alone and of both inners (to_csr, native ILUT,
+    upload); K7 held against its plain version on the four triangles that
+    this solve sweeps (F's and GtG's L and U at n=64), f64 and f32; then
+    per-layer wall time of the solve, with synchronized timers. Returns
+    the comparisons."""
+    p = {k: ILU_SLICE[k] for k in ("c", "d", "xi", "eta_n", "eta_s")}
+    op = make_multiphase_operator(ILU_SLICE["n"], **p, device=dev)
+    _, b = mms.fill_sol_and_rhs(op.grid, mms.variable_thn_problem(
+        *(float(v) for v in p.values())))
+    b_vec = pack_fields(op, b)
+    t0 = time.perf_counter()
+    ilu.ILUPreconditioner.ilut(op.F.to_csr(drop_tol=1e-14), fill=400,
+                               tau=3e-5, apply="neumann")
+    torch.cuda.synchronize()
+    ilut_f = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f_inner, p_inner = lsc_inners(op, "lsc_ilut",
+                                  ilut_apply=ILU_SLICE["ilut_apply"],
+                                  ilut_sweeps=ILU_SLICE["ilut_sweeps"])
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    cmp = compare_sweeps("ilu_layers", {
+        f"F n={op.grid.n} ILUT(400, 3e-5) L": f_inner.ilu.lower,
+        f"F n={op.grid.n} ILUT(400, 3e-5) U": f_inner.ilu.upper,
+        f"GtG n={op.grid.n} ILUT(100, 1e-3) L": p_inner.ilu.lower,
+        f"GtG n={op.grid.n} ILUT(100, 1e-3) U": p_inner.ilu.upper},
+        np.random.default_rng(0))
+    spent = {"f_ilu": 0.0, "gtg_ilu": 0.0, "outer_matvec_K2": 0.0,
+             "pc_apply": 0.0}
+    calls = dict.fromkeys(spent, 0)
+
+    def timed(key, fn):
+        def wrapped(v):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(v)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+            calls[key] += 1
+            return out
+        return wrapped
+
+    M = timed("pc_apply", pcs.make_lsc_pc(op, timed("f_ilu", f_inner),
+                                          timed("gtg_ilu", p_inner)))
+    mv = timed("outer_matvec_K2", a_matvec(op))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = krylov.fgmres(mv, b_vec, tol=ILU_SLICE["tol"],
+                        maxiter=ILU_SLICE["maxiter"], M=M)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    glue = spent["pc_apply"] - spent["f_ilu"] - spent["gtg_ilu"]
+    arnoldi = total - spent["pc_apply"] - spent["outer_matvec_K2"]
+    say("ilu_layers", F_ilut_s=f"{ilut_f:.2f}",
+        host_setup_s=f"{setup:.2f}", iters=res.iters,
+        total_s=f"{total:.4f}", f_ilu_apply_s=f"{spent['f_ilu']:.4f}",
+        gtg_ilu_apply_s=f"{spent['gtg_ilu']:.4f}",
+        outer_matvec_K2_s=f"{spent['outer_matvec_K2']:.4f}",
+        lsc_glue_s=f"{glue:.4f}", outer_arnoldi_s=f"{arnoldi:.4f}",
+        calls=json.dumps(calls))
+    window = dict(ILU_SLICE, maxiter=10)
+    say("ilu_profile", window="10 outer iterations of the warm solve")
+    profile_window("ilu_profile",
+                   lambda: solve_multiphase(**window, device=dev),
+                   {"ell_spmv_K7": "ell_spmv_kernel",
+                    "a_apply_K2": "fused_stencil_kernel<double, 5>"}, top=6)
+    return cmp
+
+
+def phase_ilu_level(dev) -> None:
+    """The CLI default on the card: exact level-scheduled triangular solves
+    in plain PyTorch, then one warm outer iteration under torch.profiler
+    for its launch count."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = solve_multiphase(**ILU_LEVEL, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    l2 = rep.error_norms["l2"]
+    check(rep.converged, f"ilu_level did not converge: {rep.status}")
+    check(abs(rep.iters - ILU_LEVEL_ITERS) <= 2,
+          f"ilu_level took {rep.iters} iterations, not {ILU_LEVEL_ITERS}+-2")
+    check(abs(l2 - ILU_LEVEL_L2) <= 0.01 * ILU_LEVEL_L2,
+          f"ilu_level L2 {l2:.6e} not within 1% of {ILU_LEVEL_L2}")
+    say("ilu_level", iters=rep.iters, relres=f"{rep.relres:.3e}",
+        l2=f"{l2:.6e}", seconds=f"{secs:.3f}")
+    say("ilu_level", window="1 outer iteration of the warm solve")
+    per_iter = profile_window(
+        "ilu_level", lambda: solve_multiphase(**ILU_LEVEL, maxiter=1,
+                                              device=dev), {}, top=6)
+    say("ilu_level", launches_total=f"~{per_iter * rep.iters} (the "
+        f"window's {per_iter} x {rep.iters} iterations)" if per_iter
+        else "not measured")
+
+
+def phase_dia_lsc(dev) -> dict:
+    """Path (b): LSC from the DIA matrices of -D, F and G (inner_tol 1e-5,
+    inner_iters 80), FGMRES on A.to_dia().matvec at n=128; every matvec
+    of the solve is K5/K6. The true residual is checked with K2. Then K5/K6
+    is held against its plain version on each DIA matrix the solve
+    multiplies by: A, -D (wide), F, G (tall), and GtG and GtFG (the
+    device SpGEMM products make_lsc_pc_from_dia forms from the same
+    blocks), f64 and f32. Returns the launches and the comparisons."""
+    n = DIA_LSC_N
+    op = make_multiphase_operator(n, eta_n=100.0, device=dev)
+    u, b = mms.fill_sol_and_rhs(op.grid, mms.variable_thn_problem(
+        1.0, -1.0, 1.0, 100.0, 1.0))
+    b_vec, u_vec = pack_fields(op, b), pack_fields(op, u)
+    t0 = time.perf_counter()
+    flat = [DIAMatrix.from_csr(blk.to_csr(drop_tol=0.0), periodic=False)
+            for blk in (op.minus_D, op.F, op.G)]
+    A = op.A.to_dia()
+    M = pcs.make_lsc_pc_from_dia(*flat, inner_tol=1e-5, inner_iters=80)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = krylov.fgmres(A.matvec, b_vec, tol=1e-8, maxiter=80, M=M)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = cuda_dia.LAUNCHES["dia_spmv"]
+    l2 = norms_report(res.x, u_vec, op.grid.dx, op.grid.dy)["l2"]
+    _, rn = krylov.residual_norm(a_matvec(op), b_vec, res.x)
+    true_res = float(rn / torch.linalg.norm(b_vec))
+    say("dia_lsc", n=n, rows=A.shape[0], diagonals=len(A.offsets),
+        f_diagonals=len(flat[1].offsets), iters=res.iters,
+        relres=f"{res.relres:.3e}", true_relres=f"{true_res:.3e}",
+        l2=f"{l2:.6e}", setup_s=f"{setup:.3f}", seconds=f"{secs:.3f}",
+        dia_spmv_launches=launches)
+    check(res.converged, "dia_lsc did not converge")
+    check(res.iters <= DIA_LSC_MAX_ITERS,
+          f"dia_lsc {res.iters} iterations > {DIA_LSC_MAX_ITERS}")
+    check(true_res < 1e-7, f"dia_lsc true relres {true_res:.3e} >= 1e-7")
+    check(abs(l2 - DIA_LSC_L2) <= 0.01 * DIA_LSC_L2,
+          f"dia_lsc L2 {l2:.6e} not within 1% of {DIA_LSC_L2}")
+    check(launches > 0, "dia_spmv was not launched by the dia_lsc solve")
+    gtg, gtfg = lsc_products_device(*flat)
+    cmp = compare_dia("dia_lsc", {
+        f"A n={n}": A, f"-D n={n}": flat[0], f"F n={n}": flat[1],
+        f"G n={n}": flat[2], f"GtG n={n}": gtg, f"GtFG n={n}": gtfg},
+        np.random.default_rng(0))
+    say("dia_profile", window="2 outer iterations")
+    profile_window("dia_profile",
+                   lambda: krylov.fgmres(A.matvec, b_vec, tol=1e-8,
+                                         maxiter=2, M=M),
+                   {"dia_spmv_K5": "dia_spmv_kernel"}, top=6)
+    return dict(launches=launches, iters=res.iters, seconds=secs, cmp=cmp)
 
 
 def main() -> None:
@@ -306,16 +716,39 @@ def main() -> None:
     runs = phase_slice(dev)
     phase_layers(dev)
     phase_profile(dev)
+    sres = phase_sparse_kernels(dev)
+    ilu_runs = phase_ilu_slice(dev)
+    ilu_cmp = phase_ilu_layers(dev)
+    phase_ilu_level(dev)
+    dia = phase_dia_lsc(dev)
     kernels = []
     for kname, tag in (("f_apply", "f32"), ("a_apply", "f64")):
         r = kres[(kname, 512, tag)]
         kernels.append(dict(
             name=f"{kname} ({'K1' if kname == 'f_apply' else 'K2'}, "
                  f"{tag}, n=512)",
-            route="cuda", source=SOURCE, replaces=REPLACES[kname],
+            route="cuda", source=SOURCE[kname], replaces=REPLACES[kname],
             launches=runs["warm"]["launches"][kname],
             max_abs_err=r["err"], max_abs_ref=r["scale"],
             ms=r["ms"], plain_ms=r["plain_ms"]))
+    # each sparse kernel: its f64 comparison on an operand of its path, and
+    # the launches of its path's run
+    nl, nd = ILU_SLICE["n"], DIA_LSC_N
+    for kname, r, label, launches in (
+            ("dia_spmv", dia["cmp"][(f"A n={nd}", torch.float64)],
+             f"K5/K6, f64, path (b): A n={nd}", dia["launches"]),
+            ("ell_spmv",
+             ilu_cmp[(f"F n={nl} ILUT(400, 3e-5) U", torch.float64)],
+             f"K7, f64, path (a): F n={nl} ILUT U factor, epilogue",
+             ilu_runs["warm"]["launches"]["ell_spmv"]),
+            ("ell_spmm", sres[("ell_spmm", "GtG", torch.float64)],
+             f"K8, f64, BandedELL.matmat path: GtG n={SPARSE_ELL_N}, "
+             f"k={SPARSE_K}", sres["spmm_path_launches"])):
+        kernels.append(dict(
+            name=f"{kname} ({label})", route="cuda", source=SOURCE[kname],
+            replaces=REPLACES[kname], launches=launches,
+            max_abs_err=r["err"], max_abs_ref=r["scale"], ms=r["ms"],
+            plain_ms=r["plain_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,11 +1,14 @@
 """High-level solve workflows returning structured reports (port of
-`mpbp_tpu/drivers.py`, the slice behind
-`solve_multiphase(pc="lsc_mg_full", precision="hybrid")`).
+`mpbp_tpu/drivers.py`: the multigrid, Krylov and ILU kinds, precision
+full/hybrid).
 
 Everything is assembled in f64 (or the requested dtype) directly on the
 requested device. The outer matvec is kernel K2 and the F matvecs of the
-inner solves are kernel K1 (`ops/cuda_stencil.py`); on a CPU device both
-run their plain PyTorch versions.
+matrix-free inner solves are kernel K1 (`ops/cuda_stencil.py`); the ILU
+kinds factor on the host (`mpbp_tpu.native`) and apply their triangular
+solves on the device, each Neumann sweep one launch of kernel K7
+(`ops/cuda_ell.py`). On a CPU device every kernel runs its plain PyTorch
+version.
 """
 
 from __future__ import annotations
@@ -29,11 +32,6 @@ from mpbp_tpu_torch.utils.norms import norms_report
 # kinds and modes of the JAX package that this port does not have yet, with
 # the ROADMAP.md item that brings each
 _NOT_PORTED = {
-    "lsc_ilut": "queue 1 item 10 (reference-parity ILU path)",
-    "lsc_ilu0": "queue 1 item 10 (reference-parity ILU path)",
-    "lsc_mg": "queue 1 item 10 (reference-parity ILU path)",
-    "block_diag": "queue 1 item 10 (reference-parity ILU path)",
-    "block_tri": "queue 1 item 10 (reference-parity ILU path)",
     "exact_schur": "queue 1 item 7 (exact-Schur and block preconditioners)",
     "lsc_mg_krylov": "queue 1 item 8 (remaining driver kinds)",
     "ir": "queue 1 item 8 (precision='ir', solvers/mixed.py)",
@@ -106,31 +104,66 @@ def make_preconditioner(op: MultiphaseOperator, kind: str,
                         ilut_fill: int = 400, ilut_tau: float = 3e-5,
                         ilut_refine: int = 0,
                         inner_tol: float = 1e-4, inner_iters: int = 60,
-                        dtype: torch.dtype = torch.float64
+                        dtype: torch.dtype = torch.float64,
+                        ilut_apply: str = "level", ilut_sweeps: int = 24
                         ) -> Callable | None:
     """Build a named preconditioner configuration.
 
     kinds:
       none        - unpreconditioned
+      lsc_ilut    - LSC with ILUT(fill, tau) inner solves: the reference-
+                    parity configuration
+      lsc_ilu0    - LSC with ILU(0) inner solves
+      lsc_mg      - LSC with an ILUT F inner and a pressure-MG inner
       lsc_mg_full - LSC with multigrid inner solves: MG-preconditioned GMRES
                     on F, three pressure-MG cycles on GtG
       lsc_krylov  - LSC with matrix-free inner Krylov (CG on GtG, GMRES on F)
-    The ilut_* settings belong to the ILU kinds, which are not ported yet
-    (ROADMAP.md queue 1 item 10)."""
+      block_diag  - block-diagonal F/Schur PC (ILUT inners)
+      block_tri   - block lower-triangular PC (ILUT inners)"""
     if kind == "none":
         return None
-    f_inner, p_inner = lsc_inners(op, kind, inner_tol=inner_tol,
-                                  inner_iters=inner_iters, dtype=dtype)
+    f_inner, p_inner = lsc_inners(op, kind, ilut_fill=ilut_fill,
+                                  ilut_tau=ilut_tau, ilut_refine=ilut_refine,
+                                  inner_tol=inner_tol,
+                                  inner_iters=inner_iters, dtype=dtype,
+                                  ilut_apply=ilut_apply,
+                                  ilut_sweeps=ilut_sweeps)
+    if kind == "block_diag":
+        return pcs.make_block_diagonal_pc(op, f_inner, p_inner)
+    if kind == "block_tri":
+        return pcs.make_block_triangular_pc(op, f_inner, p_inner)
     return pcs.make_lsc_pc(op, f_inner, p_inner)
 
 
-def lsc_inners(op: MultiphaseOperator, kind: str, inner_tol: float = 1e-4,
-               inner_iters: int = 60, dtype: torch.dtype = torch.float64):
-    """The (F-block, pressure-block) inner solvers for a named LSC kind,
-    shared by the single- and mixed-precision assemblies. The F matvec is
-    the flux form through kernel K1 (f32-safe on F's near-kernel)."""
+def lsc_inners(op: MultiphaseOperator, kind: str,
+               ilut_fill: int = 400, ilut_tau: float = 3e-5,
+               ilut_refine: int = 0, inner_tol: float = 1e-4,
+               inner_iters: int = 60, dtype: torch.dtype = torch.float64,
+               ilut_apply: str = "level", ilut_sweeps: int = 24):
+    """The (F-block, pressure-block) inner solvers for a named kind, shared
+    by the single- and mixed-precision assemblies. The matrix-free F matvec
+    is the flux form through kernel K1 (f32-safe on F's near-kernel).
+
+    ilut_apply: 'level' (exact level-scheduled triangular solves) or
+    'neumann' (`ilut_sweeps` Jacobi sweeps per triangle, each one launch of
+    kernel K7, at the cost of extra outer iterations)."""
     if kind in _NOT_PORTED:
         raise _not_ported(kind)
+
+    if kind in ("lsc_ilut", "lsc_ilu0", "block_diag", "block_tri"):
+        GtG, _ = pcs.lsc_products(op)
+        tri = dict(dtype=dtype, apply=ilut_apply, sweeps=ilut_sweeps)
+        if kind == "lsc_ilu0":
+            f_inner = pcs.ILUInner.ilu0_of(op.F, refine=ilut_refine, **tri)
+            p_inner = pcs.ILUInner.ilu0_of(GtG, **tri)
+        else:
+            # F is the hard block (phase coupling, viscosity contrast):
+            # deeper fill there buys outer iterations. GtG is Poisson-like
+            # and keeps the reference's ILUT(100, 1e-3).
+            f_inner = pcs.ILUInner.ilut_of(op.F, fill=ilut_fill, tau=ilut_tau,
+                                           refine=ilut_refine, **tri)
+            p_inner = pcs.ILUInner.ilut_of(GtG, fill=100, tau=1e-3, **tri)
+        return f_inner, p_inner
 
     if kind == "lsc_krylov":
         # Jacobi(diag F)-preconditioned GMRES on F; the diagonal PC is what
@@ -158,6 +191,14 @@ def lsc_inners(op: MultiphaseOperator, kind: str, inner_tol: float = 1e-4,
                                   method="gmres", M=mg_vel)
         return f_inner, p_inner
 
+    if kind == "lsc_mg":
+        # pressure multigrid with an ILUT F inner (level-scheduled, as in
+        # the JAX package, whatever ilut_apply says)
+        p_inner = MGPressureSolver.of(op, cycles=3)
+        f_inner = pcs.ILUInner.ilut_of(op.F, fill=ilut_fill, tau=ilut_tau,
+                                       dtype=dtype, refine=ilut_refine)
+        return f_inner, p_inner
+
     raise ValueError(f"unknown preconditioner kind: {kind}")
 
 
@@ -165,17 +206,17 @@ def make_preconditioner_mixed(op64: MultiphaseOperator,
                               op32: MultiphaseOperator, kind: str,
                               inner_tol: float = 1e-4,
                               inner_iters: int = 40,
-                              **ilu_kwargs) -> Callable:
+                              **kwargs) -> Callable:
     """Mixed-precision LSC preconditioner: f64 formula glue (from op64)
     around f32 inner solves (from op32). Only LSC kinds: the glue is the
-    LSC formula. `ilu_kwargs` (ilut_*) belong to the unported ILU kinds."""
+    LSC formula. `kwargs` (ilut_*) go to `lsc_inners`."""
     if not kind.startswith("lsc_"):
         raise ValueError(
             f"make_preconditioner_mixed builds LSC glue; kind={kind!r} is "
             "not an lsc_* kind")
     f_inner32, p_inner32 = lsc_inners(op32, kind, inner_tol=inner_tol,
                                       inner_iters=inner_iters,
-                                      dtype=torch.float32)
+                                      dtype=torch.float32, **kwargs)
     return pcs.make_lsc_pc_mixed(op64, f_inner32, p_inner32)
 
 

@@ -1,10 +1,14 @@
-"""Build and load the hand-written CUDA kernels (`csrc/fused_stencil.cu`).
+"""Build and load the hand-written CUDA kernels (`csrc/*.cu`).
 
-At first use, nvcc compiles the source for Hopper (`sm_90a`) into a shared
-library with a plain C interface, named by the source's SHA-256 under
-`mpbp_tpu_torch/_build/`, and ctypes loads it. A library already built from
-the same source is reused. A missing nvcc or a failed compile raises
-RuntimeError with nvcc's output: there is no fallback.
+Each source in `SOURCES` becomes its own shared library with a plain C
+interface: at first use, nvcc compiles it for Hopper (`sm_90a`) into
+`mpbp_tpu_torch/_build/lib<stem>_<sha>.so`, named by the SHA-256 of that
+source alone, and ctypes loads it with the argtypes of each of its entry
+points. A library already built from the same source is reused, so editing
+one source rebuilds only its own library. A missing nvcc or a failed
+compile raises RuntimeError with nvcc's output: there is no fallback.
+`build_all` starts one nvcc per source at once; `launch` calls one entry
+point on PyTorch's current stream and raises if it returns an error.
 """
 
 from __future__ import annotations
@@ -16,8 +20,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "fused_stencil.cu"
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 # the CUDA toolkit's standard install prefix, searched after PATH and
 # $CUDA_HOME / $CUDA_PATH
@@ -25,12 +31,34 @@ _CUDA_HOME_DEFAULT = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# one C entry point per (kernel, dtype); all share one signature
-ENTRY_POINTS = ("f_apply_f32", "f_apply_f64", "a_apply_f32", "a_apply_f64")
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-             + [ctypes.c_double] * 9 + [ctypes.c_void_p])
+_P, _I32, _I64, _F64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_double)
+# K1/K2: tn, wnx, wny, x, out, n, c, d, xi, eta_n, eta_s, d_p, d_div, dx,
+# dy, stream
+_STENCIL_ARGS = [_P] * 5 + [_I32] + [_F64] * 9 + [_P]
+# dia_spmv: data, offsets, K, nrows, ncols, x, y, stream
+_DIA_ARGS = [_P, _P, _I32, _I64, _I64, _P, _P, _P]
+# ell_spmv: cols, vals, W, nrows, x, b, inv_d, y, stream
+_ELL_ARGS = [_P, _P, _I32, _I64, _P, _P, _P, _P, _P]
+# ell_spmm: cols, vals, W, nrows, k, X, Y, stream
+_SPMM_ARGS = [_P, _P, _I32, _I64, _I64, _P, _P, _P]
 
-_lib: ctypes.CDLL | None = None
+
+def _both(name: str, args: list) -> dict:
+    return {f"{name}_f32": args, f"{name}_f64": args}
+
+
+# source stem -> {C entry point: argtypes}; every entry point returns a
+# cudaError_t as int, and `<stem>_error_string` names it
+SOURCES = {
+    "fused_stencil": {**_both("f_apply", _STENCIL_ARGS),
+                      **_both("a_apply", _STENCIL_ARGS)},
+    "sparse_spmv": {**_both("dia_spmv", _DIA_ARGS),
+                    **_both("ell_spmv", _ELL_ARGS),
+                    **_both("ell_spmm", _SPMM_ARGS)},
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -51,42 +79,91 @@ def find_nvcc() -> str:
         "built from source at first use and need the CUDA toolkit")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return _BUILD_DIR / f"libfused_stencil_{digest}.so"
+def source_path(stem: str) -> Path:
+    if stem not in SOURCES:
+        raise ValueError(f"unknown kernel source {stem!r}")
+    return _CSRC / f"{stem}.cu"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library of this exact source exists.
-    Returns the library's path."""
-    out = library_path()
+def library_path(stem: str) -> Path:
+    digest = hashlib.sha256(source_path(stem).read_bytes()).hexdigest()[:16]
+    return _BUILD_DIR / f"lib{stem}_{digest}.so"
+
+
+def _start(stem: str, nvcc: str):
+    """Start nvcc for one source; None if its library exists already."""
+    out = library_path(stem)
     if out.exists():
-        return out
-    nvcc = find_nvcc()
+        return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(stem))]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, cmd, tmp, out
+
+
+def _finish(job) -> None:
+    proc, cmd, tmp, out = job
+    stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
+                           f"{' '.join(cmd)}\n{stderr}{stdout}")
     os.replace(tmp, out)
-    return out
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), with argtypes set
-    for every entry point."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name in ENTRY_POINTS:
+def build_all(stems=None) -> dict[str, Path]:
+    """Compile the given sources (default: all) unless a library of their
+    exact source exists, one nvcc each, all started together. Returns
+    {stem: library path}."""
+    stems = tuple(SOURCES if stems is None else stems)
+    todo = [stem for stem in stems if not library_path(stem).exists()]
+    if todo:
+        nvcc = find_nvcc()
+        jobs = [job for job in (_start(stem, nvcc) for stem in todo) if job]
+        try:
+            for job in jobs:
+                _finish(job)
+        finally:
+            for proc, *_ in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return {stem: library_path(stem) for stem in stems}
+
+
+def build(stem: str) -> Path:
+    """Compile one source unless its library exists; returns its path."""
+    return build_all((stem,))[stem]
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library of one source (built on first call), with
+    argtypes set for every entry point."""
+    lib = _libs.get(stem)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(stem)))
+        for name, argtypes in SOURCES[stem].items():
             fn = getattr(lib, name)
-            fn.argtypes = _ARGTYPES
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.fused_stencil_error_string.argtypes = [ctypes.c_int]
-        lib.fused_stencil_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        err = getattr(lib, f"{stem}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _libs[stem] = lib
+    return lib
+
+
+def launch(stem: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry point `entry` of source `stem` with `args` and the
+    current stream of `device` (a CUDA device); raise RuntimeError if the
+    launch returns a CUDA error."""
+    lib = load(stem)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        msg = getattr(lib, f"{stem}_error_string")(err).decode()
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err} "
+                           f"({msg})")

@@ -96,21 +96,13 @@ def _dispatch(name, nf, reference, tn, wnx, wny, x, params, dx, dy):
         return reference(tn, wnx, wny, x, params, dx, dy)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    lib = _build.load()
-    fn = getattr(lib, f"{name}_{_SUFFIX[x.dtype]}")
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(tn.data_ptr(), wnx.data_ptr(), wny.data_ptr(),
-                 x.data_ptr(), out.data_ptr(), x.shape[1],
-                 float(params["c"]), float(params["d"]), float(params["xi"]),
-                 float(params["eta_n"]), float(params["eta_s"]),
-                 float(params.get("d_p", 1.0)),
-                 float(params.get("d_div", -1.0)), float(dx), float(dy),
-                 stream)
-    if err != 0:
-        msg = lib.fused_stencil_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
-                           f"({msg})")
+    _build.launch("fused_stencil", f"{name}_{_SUFFIX[x.dtype]}", x.device,
+                  tn.data_ptr(), wnx.data_ptr(), wny.data_ptr(),
+                  x.data_ptr(), out.data_ptr(), x.shape[1],
+                  float(params["c"]), float(params["d"]), float(params["xi"]),
+                  float(params["eta_n"]), float(params["eta_s"]),
+                  float(params.get("d_p", 1.0)),
+                  float(params.get("d_div", -1.0)), float(dx), float(dy))
     LAUNCHES[name] += 1
     return out

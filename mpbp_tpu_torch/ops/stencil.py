@@ -186,6 +186,94 @@ class StencilOperator:
             return self.compose(other)
         return self.apply(other)
 
+    def nnz_per_row_bound(self) -> int:
+        """Max number of stencil taps feeding any output field (ELL width)."""
+        per_out: dict[str, int] = {}
+        for (of, _), offmap in self.terms.items():
+            per_out[of] = per_out.get(of, 0) + len(offmap)
+        return max(per_out.values()) if per_out else 0
+
+    def _flat_terms(self):
+        """(out block, in field, dr, dc, host coefficient plane) per term,
+        in the JAX package's export order."""
+        return [(oi, inf, dr, dc, coef.detach().cpu().numpy())
+                for oi, of in enumerate(self.out_fields)
+                for inf in self.in_fields
+                for (dr, dc), coef in (self.terms.get((of, inf))
+                                       or {}).items()]
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the coefficient planes."""
+        return self._zeros().device
+
+    def to_csr(self, drop_tol: float = 0.0):
+        """Export to a CSR (`ops/sparse.CSRMatrix`) on the coefficients'
+        device, built on the host in numpy as the JAX package builds it, so
+        the two are equal bit for bit on equal planes. Row order is
+        block-by-field: [out_fields[0] rows (r*nc+c), out_fields[1] rows,
+        ...], the flat [un, vn, us, vs, p] layout."""
+        from mpbp_tpu_torch.ops.sparse import CSRMatrix
+
+        nr, nc = self.shape_grid
+        npts = nr * nc
+        in_base = {f: i * npts for i, f in enumerate(self.in_fields)}
+        rr, cc = np.meshgrid(np.arange(nr), np.arange(nc), indexing="ij")
+        rows_list, cols_list, vals_list = [], [], []
+        for oi, inf, dr, dc, coef in self._flat_terms():
+            rows_list.append((oi * npts + rr * nc + cc).ravel())
+            cols_list.append((in_base[inf] + ((rr + dr) % nr) * nc
+                              + (cc + dc) % nc).ravel())
+            vals_list.append(coef.ravel())
+        rows = np.concatenate(rows_list)
+        cols = np.concatenate(cols_list)
+        vals = np.concatenate(vals_list)
+        if drop_tol > 0.0:
+            keep = np.abs(vals) > drop_tol
+            rows, cols, vals = rows[keep], cols[keep], vals[keep]
+        return CSRMatrix.from_coo(len(self.out_fields) * npts,
+                                  len(self.in_fields) * npts, rows, cols,
+                                  vals, device=self.device)
+
+    def to_dia(self, dtype=None):
+        """Direct periodic-DIA export (`ops/dia.DIAMatrix`), no CSR
+        intermediate: equal to `DIAMatrix.from_csr(self.to_csr(),
+        periodic=True)`. Square operators only (offsets are (col - row) mod
+        N). `dtype` is a numpy dtype; by default the coefficients' common
+        type."""
+        from mpbp_tpu_torch.ops.dia import DIAMatrix
+
+        nr, nc = self.shape_grid
+        npts = nr * nc
+        nrows = len(self.out_fields) * npts
+        ncols = len(self.in_fields) * npts
+        if nrows != ncols:
+            raise ValueError("DIA export requires a square operator")
+        in_base = {f: i * npts for i, f in enumerate(self.in_fields)}
+        rr, cc = np.meshgrid(np.arange(nr), np.arange(nc), indexing="ij")
+
+        def term_arrays(oi, inf, dr, dc):
+            row_ids = (oi * npts + rr * nc + cc).ravel()
+            col_ids = (in_base[inf] + ((rr + dr) % nr) * nc
+                       + (cc + dc) % nc).ravel()
+            return row_ids, (col_ids - row_ids) % nrows
+
+        terms_flat = self._flat_terms()
+        if not terms_flat:
+            raise ValueError("to_dia: operator has no stencil terms")
+        uniq = np.unique(np.concatenate([
+            np.unique(term_arrays(oi, inf, dr, dc)[1])
+            for oi, inf, dr, dc, _ in terms_flat]))
+        if dtype is None:
+            dtype = np.result_type(*(coef.dtype for *_, coef in terms_flat))
+        data = np.zeros((len(uniq), nrows), dtype=dtype)
+        for oi, inf, dr, dc, coef in terms_flat:
+            rows_, offs = term_arrays(oi, inf, dr, dc)
+            np.add.at(data, (np.searchsorted(uniq, offs), rows_),
+                      coef.ravel())
+        return DIAMatrix.from_numpy((nrows, ncols), uniq, data,
+                                    device=self.device)
+
     def to_dense(self) -> np.ndarray:
         """Dense host export (small grids only). Row order is block-by-field:
         out_fields[0] rows (r*nc + c), then out_fields[1] rows, ..."""

@@ -1,10 +1,14 @@
-"""LSC block preconditioners for the multiphase Stokes saddle-point system
-(port of the LSC part of `mpbp_tpu/solvers/preconditioners.py`).
+"""Block preconditioners for the multiphase Stokes saddle-point system
+(port of `mpbp_tpu/solvers/preconditioners.py`, without the dense
+exact-Schur preconditioner and the Jacobi and dense inners).
 
 `make_lsc_pc` is the approximate-commutator / least-squares-commutator
 Schur preconditioner: S^-1 ~ (GtG)^-1 (Gt F G) (GtG)^-1 with GtG = (-D) G,
-applied with approximate inner solves of F and GtG. `make_lsc_pc_mixed`
-keeps the LSC formula in f64 around f32 inner solves.
+applied with approximate inner solves of F and GtG (Krylov, multigrid or
+ILU: `ILUInner`). `make_lsc_pc_mixed` keeps the LSC formula in f64 around
+f32 inner solves. `make_lsc_pc_from_dia` builds LSC from DIA matrices
+alone. `make_block_diagonal_pc` / `make_block_triangular_pc` are the
+classical block preconditioners.
 
 Preconditioners are flat-vector callables z = M(v) over the layout
 [un, vn, us, vs, p], ready to pass as `M=` to `solvers.gmres.fgmres`.
@@ -19,6 +23,10 @@ import torch
 
 from mpbp_tpu_torch.models.fused import make_f_apply
 from mpbp_tpu_torch.models.multiphase import VEL_FIELDS, MultiphaseOperator
+from mpbp_tpu_torch.ops.dia import DIAMatrix
+from mpbp_tpu_torch.ops.ilu import ILUPreconditioner
+from mpbp_tpu_torch.ops.spgemm import lsc_products_device
+from mpbp_tpu_torch.ops.stencil import StencilOperator
 from mpbp_tpu_torch.solvers import gmres as krylov
 
 
@@ -48,6 +56,53 @@ def lsc_products(op: MultiphaseOperator):
     GtG = op.minus_D @ op.G
     GtFG = (op.minus_D @ op.F) @ op.G
     return GtG, GtFG
+
+
+@dataclasses.dataclass(eq=False)
+class ILUInner:
+    """ILUT/ILU(0) inner solve through triangular solves (`ops/ilu.py`).
+
+    `refine` wraps the factor apply in steps of iterative refinement
+    z <- z + M^-1 (v - A z) with the matrix-free stencil apply: legal under
+    a flexible outer Krylov method."""
+
+    ilu: ILUPreconditioner
+    refine: int = 0
+    matvec: Callable | None = None
+
+    @classmethod
+    def ilut_of(cls, A_stencil: StencilOperator, fill: int = 100,
+                tau: float = 1e-3, dtype: torch.dtype = torch.float64,
+                drop_tol: float = 1e-14, refine: int = 0,
+                apply: str = "level", sweeps: int = 24) -> "ILUInner":
+        csr = A_stencil.to_csr(drop_tol=drop_tol)
+        mv = _stencil_matvec(A_stencil, dtype) if refine else None
+        return cls(ILUPreconditioner.ilut(csr, fill=fill, tau=tau,
+                                          dtype=dtype, apply=apply,
+                                          sweeps=sweeps), refine, mv)
+
+    @classmethod
+    def ilu0_of(cls, A_stencil: StencilOperator,
+                dtype: torch.dtype = torch.float64, drop_tol: float = 1e-14,
+                refine: int = 0, apply: str = "level",
+                sweeps: int = 24) -> "ILUInner":
+        csr = A_stencil.to_csr(drop_tol=drop_tol)
+        mv = _stencil_matvec(A_stencil, dtype) if refine else None
+        return cls(ILUPreconditioner.ilu0(csr, dtype=dtype, apply=apply,
+                                          sweeps=sweeps), refine, mv)
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        z = self.ilu.solve(v)
+        for _ in range(self.refine):
+            z = z + self.ilu.solve(v - self.matvec(z))
+        return z
+
+
+def _stencil_matvec(A_stencil: StencilOperator, dtype) -> Callable:
+    tmpl = {f: torch.zeros(A_stencil.shape_grid, dtype=dtype,
+                           device=A_stencil.device)
+            for f in A_stencil.in_fields}
+    return krylov.flatten_op(A_stencil.apply, tmpl, A_stencil.in_fields)
 
 
 @dataclasses.dataclass(eq=False)
@@ -147,6 +202,78 @@ def make_lsc_pc_mixed(op64: MultiphaseOperator, f_inner32: Callable,
     return _lsc_apply(op64, GtFG, f_inner, p_inner)
 
 
+def make_lsc_pc_from_dia(minus_D: DIAMatrix, F: DIAMatrix, G: DIAMatrix,
+                         inner_tol: float = 1e-4,
+                         inner_iters: int = 60) -> Callable:
+    """LSC preconditioner built from banded (DIA) matrix data alone: no
+    stencil closures, no host factorization. GtG = (-D) G and GtFG =
+    (-D) F G come from the device SpGEMM (`ops/spgemm.py`); the inner
+    solves are Krylov solves on DIA matvecs, so every matvec of the apply
+    is kernel K5/K6 on the card. The path for operators that arrive as
+    matrices.
+
+    minus_D: (np, nu) DIA;  F: (nu, nu) DIA;  G: (nu, np) DIA
+    (flat non-periodic offsets, DIAMatrix.from_csr(periodic=False))."""
+    GtG, GtFG = lsc_products_device(minus_D, F, G)
+    nu = F.shape[0]
+
+    fdiag = F.data[F.offsets.index(0)]
+    f_inner = KrylovInner(F.matvec, tol=inner_tol, maxiter=inner_iters,
+                          method="gmres", M=lambda v: v / fdiag)
+    p_inner = KrylovInner(GtG.matvec, tol=inner_tol, maxiter=inner_iters,
+                          method="cg")
+
+    def apply(v):
+        vu, vp = v[:nu], v[nu:]
+        u_hat = f_inner(vu)
+        rp = -minus_D.matvec(u_hat) + vp          # D = -minus_D
+        x_a = p_inner(rp)
+        x_p = p_inner(GtFG.matvec(x_a))
+        u = u_hat - f_inner(G.matvec(x_p))
+        return torch.cat([u, x_p])
+
+    return apply
+
+
+def make_block_diagonal_pc(op: MultiphaseOperator, f_inner: Callable,
+                           schur_inner: Callable) -> Callable:
+    """M = blockdiag(F~, S~): z_u = F~^-1 v_u, z_p = S~^-1 v_p."""
+
+    def apply(v):
+        vu, vp = split_uv_p(op, v)
+        return torch.cat([f_inner(vu), schur_inner(vp)])
+
+    return apply
+
+
+def make_block_triangular_pc(op: MultiphaseOperator, f_inner: Callable,
+                             schur_inner: Callable) -> Callable:
+    """Block lower-triangular M = [[F, 0], [-D, S~]]:
+    z_u = F~^-1 v_u; z_p = S~^-1 (v_p + D z_u)."""
+
+    def apply(v):
+        vu, vp = split_uv_p(op, v)
+        zu = f_inner(vu)
+        rp = op.D.apply(unpack_vel(op, zu))["p"].reshape(-1) + vp
+        return torch.cat([zu, schur_inner(rp)])
+
+    return apply
+
+
+def make_mass_schur_inner(op: MultiphaseOperator) -> Callable:
+    """Viscosity-weighted pressure-mass approximation of the Schur inverse:
+    S~^-1 v = -eta_mix v, with eta_mix = eta_n theta_n + eta_s theta_s at
+    the cells."""
+    p = op.params
+    eta_mix = p["eta_n"] * op.phase_n.cell + p["eta_s"] * op.phase_s.cell
+    scale = (-(p["d"] * -1.0) * eta_mix).reshape(-1)
+
+    def apply(v):
+        return scale * v
+
+    return apply
+
+
 def project_pressure_mean(op: MultiphaseOperator,
                           v: torch.Tensor) -> torch.Tensor:
     """Remove the constant-pressure component (the periodic problem's
@@ -154,3 +281,13 @@ def project_pressure_mean(op: MultiphaseOperator,
     nu, _ = _sizes(op)
     vu, vp = v[:nu], v[nu:]
     return torch.cat([vu, vp - torch.mean(vp)])
+
+
+def wrap_with_pressure_projection(op: MultiphaseOperator,
+                                  pc: Callable) -> Callable:
+    """The preconditioner `pc` followed by the pressure-mean projection."""
+
+    def apply(v):
+        return project_pressure_mean(op, pc(v))
+
+    return apply

@@ -1,6 +1,7 @@
-"""Kernels K1/K2 on the card against their plain PyTorch versions, and the
-slice's solve on the card against the same solve on the CPU. Every test here
-needs an NVIDIA GPU and skips without one. The file imports no JAX, so it
+"""Kernels K1/K2 and K5-K8 on the card against their plain PyTorch
+versions, on awkward shapes, and the solves of the slices on the card
+against the same solves on the CPU. Every test here needs an NVIDIA GPU and
+skips without one. The file imports no JAX, so it
 also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
@@ -13,7 +14,8 @@ import torch
 
 from mpbp_tpu_torch.drivers import solve_multiphase
 from mpbp_tpu_torch.models.multiphase import operator_from_numpy
-from mpbp_tpu_torch.ops import cuda_stencil
+from mpbp_tpu_torch.ops import cuda_dia, cuda_ell, cuda_stencil
+from mpbp_tpu_torch.ops.dia import DIAMatrix
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -22,7 +24,7 @@ torch.set_num_threads(1)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (kernels K1/K2 have no CPU mode)")
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     return torch.device("cuda", 0)
 
 
@@ -70,3 +72,96 @@ def test_hybrid_solve_on_card_matches_cpu(cuda_device):
     assert gpu.params["true_relres"] <= 10 * kw["tol"]
     assert gpu.error_norms["l2"] == pytest.approx(cpu.error_norms["l2"],
                                                   rel=1e-4)
+
+
+BOUNDS = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
+
+
+def _assert_close(got, want, bound):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    scale = max(float(want.abs().max()), 1e-30)
+    assert float((got - want).abs().max()) <= bound * scale
+
+
+# (nrows, ncols, offsets): N not a multiple of 128, N = 1, signed
+# (negative) offsets on tall and wide rectangular shapes, no diagonals
+DIA_SHAPES = [(1000, 1000, (0, 1, -1, 37, -37, 999)), (1, 1, (0,)),
+              (1000, 250, (-900, -3, 0, 2, 249)),
+              (250, 1000, (-5, 0, 1, 250, 750)), (77, 77, ())]
+
+
+@pytest.mark.parametrize("dtype,bound", BOUNDS)
+@pytest.mark.parametrize("nrows,ncols,offsets", DIA_SHAPES)
+def test_dia_spmv_matches_plain(cuda_device, dtype, bound, nrows, ncols,
+                                offsets):
+    rng = np.random.default_rng(1)
+    A = DIAMatrix.from_numpy((nrows, ncols), offsets,
+                             rng.normal(size=(len(offsets), nrows)),
+                             device=cuda_device)
+    A = DIAMatrix(A.shape, A.offsets, A.data.to(dtype))
+    x = torch.as_tensor(rng.normal(size=ncols), dtype=dtype,
+                        device=cuda_device)
+    before = cuda_dia.LAUNCHES["dia_spmv"]
+    got = cuda_dia.dia_spmv(A, x)
+    assert cuda_dia.LAUNCHES["dia_spmv"] == before + 1
+    _assert_close(got, cuda_dia.dia_spmv_reference(A, x), bound)
+
+
+def _ell(rng, N, ncols, W, dtype, device):
+    """Slot-major random ELL whose last slot is padding (value 0) in every
+    other row, with row 3 empty (all slots padding)."""
+    cols = rng.integers(0, ncols, size=(W, N)).astype(np.int32)
+    vals = rng.normal(size=(W, N))
+    if W > 1:
+        vals[-1, ::2] = 0.0
+    vals[:, min(3, N - 1)] = 0.0
+    return (torch.as_tensor(cols, device=device),
+            torch.as_tensor(vals, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("dtype,bound", BOUNDS)
+@pytest.mark.parametrize("N,W", [(1000, 1), (1000, 7), (1, 3), (4097, 40)])
+def test_ell_spmv_matches_plain(cuda_device, dtype, bound, N, W):
+    rng = np.random.default_rng(2)
+    cols, vals = _ell(rng, N, N, W, dtype, cuda_device)
+    x, b = (torch.as_tensor(rng.normal(size=N), dtype=dtype,
+                            device=cuda_device) for _ in range(2))
+    inv_d = torch.as_tensor(1.0 + rng.random(N), dtype=dtype,
+                            device=cuda_device)
+    before = cuda_ell.LAUNCHES["ell_spmv"]
+    got = cuda_ell.ell_spmv(cols, vals, x)
+    got_epi = cuda_ell.ell_spmv(cols, vals, x, b=b, inv_d=inv_d)
+    assert cuda_ell.LAUNCHES["ell_spmv"] == before + 2
+    _assert_close(got, cuda_ell.ell_spmv_reference(cols, vals, x), bound)
+    _assert_close(got_epi, cuda_ell.ell_spmv_reference(cols, vals, x, b,
+                                                       inv_d), bound)
+
+
+@pytest.mark.parametrize("dtype,bound", BOUNDS)
+@pytest.mark.parametrize("k", [1, 33])
+def test_ell_spmm_matches_plain(cuda_device, dtype, bound, k):
+    rng = np.random.default_rng(3)
+    N, ncols, W = 1000, 700, 5
+    cols, vals = _ell(rng, N, ncols, W, dtype, cuda_device)
+    X = torch.as_tensor(rng.normal(size=(ncols, k)), dtype=dtype,
+                        device=cuda_device)
+    before = cuda_ell.LAUNCHES["ell_spmm"]
+    got = cuda_ell.ell_spmm(cols, vals, X)
+    assert cuda_ell.LAUNCHES["ell_spmm"] == before + 1
+    _assert_close(got, cuda_ell.ell_spmm_reference(cols, vals, X), bound)
+
+
+def test_ilut_neumann_solve_on_card_matches_cpu(cuda_device):
+    """The reference-parity ILU solve with Neumann sweeps (path (a)) on the
+    card against the CPU at n=16 (74 iterations in f64 on the CPU); every
+    sweep is one K7 launch on the card."""
+    kw = dict(n=16, eta_n=100.0, pc="lsc_ilut", ilut_apply="neumann",
+              tol=1e-8, maxiter=150)
+    before = cuda_ell.LAUNCHES["ell_spmv"]
+    gpu = solve_multiphase(**kw, device=cuda_device)
+    assert cuda_ell.LAUNCHES["ell_spmv"] > before
+    cpu = solve_multiphase(**kw, device="cpu")
+    assert gpu.converged and abs(gpu.iters - cpu.iters) <= 2
+    assert gpu.error_norms["l2"] == pytest.approx(cpu.error_norms["l2"],
+                                                  rel=1e-6)

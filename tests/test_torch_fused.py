@@ -126,7 +126,7 @@ def no_cuda_toolkit(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_CUDA_HOME_DEFAULT",
                         str(tmp_path / "no-cuda"))
-    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setenv("PATH", str(tmp_path / "empty-bin"))
@@ -135,9 +135,10 @@ def no_cuda_toolkit(monkeypatch, tmp_path):
 
 def test_build_without_nvcc_raises(no_cuda_toolkit):
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build()
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load()
+        _build.build("fused_stencil")
+    for stem in _build.SOURCES:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load(stem)
 
 
 def test_build_compile_failure_raises_with_nvcc_output(no_cuda_toolkit):
@@ -148,7 +149,9 @@ def test_build_compile_failure_raises_with_nvcc_output(no_cuda_toolkit):
                     "exit 3\n")
     fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
     with pytest.raises(RuntimeError, match="fake compile failure"):
-        _build.build()
+        _build.build("fused_stencil")
+    with pytest.raises(RuntimeError, match="fake compile failure"):
+        _build.build_all()
     assert not any(p.suffix == ".so"
                    for p in (no_cuda_toolkit / "build").iterdir())
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)

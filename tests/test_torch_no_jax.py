@@ -1,0 +1,41 @@
+"""The port runs without JAX: importing its entry points (the drivers, the
+CLI, every ops module and `chip_smoke.py`) in a fresh interpreter where
+`import jax` fails loads no JAX module. Of the JAX package only
+`mpbp_tpu` and `mpbp_tpu.native` (ctypes and numpy) may load: the port
+reuses the native ILUT/ILU(0) and level-schedule library."""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+PROBE = """
+import json, sys
+sys.modules["jax"] = None      # any `import jax` now raises ImportError
+sys.modules["jaxlib"] = None
+import chip_smoke
+import mpbp_tpu_torch.cli
+import mpbp_tpu_torch.drivers
+from mpbp_tpu_torch.ops import (cuda_dia, cuda_ell, cuda_stencil, dia,
+                                dispatch, ilu, sparse, spgemm, stencil,
+                                trisolve)
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib")
+                  and sys.modules[m] is not None),
+    "jax_package": sorted(m for m in sys.modules
+                          if m.split(".")[0] == "mpbp_tpu")}))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert loaded["jax"] == []
+    assert set(loaded["jax_package"]) <= {"mpbp_tpu", "mpbp_tpu.native"}
