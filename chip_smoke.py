@@ -37,6 +37,24 @@ Phases, one status line each; any failure raises and exits non-zero:
                on A.to_dia(); every matvec is K5/K6, which is then held
                against its plain version on each of the path's six DIA
                matrices.
+ 12. halo_kernels - K3 (a_apply_band) and K4 (a_apply_staged) against
+               their plain versions, f32 and f64: K3 on a real band (64
+               rows of a random n=512 grid with h=8 neighbour rows, not
+               periodic within the band) and on the row-extended state
+               (h=1) at n=512 and 2048, with the whole `extend` apply (the
+               torch.cat copy included) timed beside it; K4 at n=512, 2048
+               and 1000 (no multiple of any tile). Each also against K2 on
+               the same state: max difference and whether bit-equal. Times
+               and GB/s tagged L2 or HBM.
+ 13. bench  - the A-apply race of `python -m mpbp_tpu_torch.bench` (K2, K3
+               extend, K4 at three tiles, plain PyTorch; CUDA-graph and
+               eager marginal times), its JSON line and the winner.
+ 14. ir_slice - `bench_solve --mode ir` at n=512 (pc lsc_mg_full, tol 1e-8,
+               inner-tol 1e-6, inner-maxiter 40, max-outer 5, pc-inner-tol
+               1e-4), cold and warm with --halo inkernel, then warm with
+               pipelined and extend on the same setup, with the K1-K4
+               launches of each run; then solve_multiphase(precision="ir")
+               at n=64 and the true-residual monitor at n=16.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -51,9 +69,11 @@ import time
 import numpy as np
 import torch
 
+from mpbp_tpu_torch import bench, bench_solve
 from mpbp_tpu_torch.drivers import (a_matvec, lsc_inners, pack_fields,
                                     solve_multiphase)
 from mpbp_tpu_torch.models import mms
+from mpbp_tpu_torch.models.fused import _extend_rows, make_fused_apply_kernel
 from mpbp_tpu_torch.models.multiphase import (make_multiphase_operator,
                                               operator_from_numpy)
 from mpbp_tpu_torch.ops import _build, cuda_dia, cuda_ell, cuda_stencil, ilu
@@ -67,11 +87,15 @@ from mpbp_tpu_torch.utils.norms import norms_report
 
 SOURCE = {"f_apply": "mpbp_tpu_torch/csrc/fused_stencil.cu",
           "a_apply": "mpbp_tpu_torch/csrc/fused_stencil.cu",
+          "a_apply_band": "mpbp_tpu_torch/csrc/fused_stencil.cu",
+          "a_apply_staged": "mpbp_tpu_torch/csrc/fused_stencil.cu",
           "dia_spmv": "mpbp_tpu_torch/csrc/sparse_spmv.cu",
           "ell_spmv": "mpbp_tpu_torch/csrc/sparse_spmv.cu",
           "ell_spmm": "mpbp_tpu_torch/csrc/sparse_spmv.cu"}
 REPLACES = {"f_apply": "mpbp_tpu/ops/pallas_stencil.py:518",
             "a_apply": "mpbp_tpu/ops/pallas_stencil.py:490",
+            "a_apply_band": "mpbp_tpu/ops/pallas_stencil.py:76",
+            "a_apply_staged": "mpbp_tpu/ops/pallas_stencil.py:175",
             "dia_spmv": "mpbp_tpu/ops/pallas_dia.py:89 (K5) and :256 (K6)",
             "ell_spmv": "mpbp_tpu/ops/pallas_ell.py:173",
             "ell_spmm": "mpbp_tpu/ops/pallas_ell.py:241"}
@@ -98,6 +122,21 @@ DIA_LSC_N, DIA_LSC_L2, DIA_LSC_MAX_ITERS = 128, 3.68351e-4, 40
 # sparse_kernels sizes: the multiphase A (and G) as DIA, GtG's ILU factor
 # and GtG as ELL, the SpMM block width
 SPARSE_DIA_N, SPARSE_ELL_N, SPARSE_K = (512, 1024), 256, 16
+# halo_kernels: K3 on rows BAND_R0.. of a random n=BAND_N grid, K3 through
+# the row extension and K4 at these sizes (1000: no multiple of any tile)
+BAND_N, BAND_ROWS, BAND_H, BAND_R0 = 512, 64, 8, 200
+EXTEND_N, STAGED_N = (512, 2048), (512, 2048, 1000)
+# ir_slice: benchmarks/solve_tpu.py's ir configuration (SOLVE_r05.json: 3
+# outer and 90 inner iterations, L2 2.3035e-5); the JAX package takes 124
+# inner iterations to L2 1.470731e-3 at n=64
+IR_ARGS = ["--n", "512", "--mode", "ir", "--tol", "1e-8", "--inner-tol",
+           "1e-6", "--inner-maxiter", "40", "--max-outer", "5",
+           "--pc-inner-tol", "1e-4"]
+IR_N64 = dict(n=64, eta_n=100, pc="lsc_mg_full", precision="ir", tol=1e-8,
+              maxiter=100, inner_tol=1e-4, inner_iters=40)
+IR_N64_L2, IR_N64_JAX_INNER = 1.470731e-3, 124
+MONITOR = dict(n=16, eta_n=100, pc="lsc_mg_full", tol=1e-8, maxiter=100,
+               inner_tol=1e-4, inner_iters=40, true_res_monitor=True)
 
 
 class SmokeFailure(RuntimeError):
@@ -246,8 +285,8 @@ def phase_slice(dev) -> dict:
         check(tuple(rep.x.shape) == (5 * n * n,)
               and bool(torch.isfinite(rep.x).all()),
               "solution has the wrong shape or non-finite values")
-        for k, v in launches.items():
-            check(v > 0, f"kernel {k} was not launched by the solve")
+        for k in ("f_apply", "a_apply"):
+            check(launches[k] > 0, f"kernel {k} was not launched by the solve")
         runs[label] = dict(seconds=secs, launches=launches, iters=rep.iters)
     return runs
 
@@ -368,14 +407,20 @@ def _compare(kernel: str, label: str, dtype, kern, ref, nbytes: int,
           f"{BOUND[dtype]:.0e}*{scale:.3e}")
     ms, plain_ms = median_ms(kern), median_ms(ref)
     gbs = nbytes / (ms * 1e-3) / 1e9
-    l2 = getattr(torch.cuda.get_device_properties(got.device),
-                 "L2_cache_size", 0)
-    resident = ("not known" if not l2 else "L2" if nbytes <= l2 else "HBM")
     say(phase, kernel=f"{kernel}_{tag}", case=repr(label),
         max_abs_err=f"{err:.3e}", max_abs_ref=f"{scale:.3e}",
         ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", gb_per_s=f"{gbs:.1f}",
-        operand_mb=f"{nbytes / 1e6:.1f}", resident=resident)
+        operand_mb=f"{nbytes / 1e6:.1f}",
+        resident=_resident(nbytes, got.device))
     return dict(err=err, scale=scale, ms=ms, plain_ms=plain_ms, gbs=gbs)
+
+
+def _resident(nbytes: int, device) -> str:
+    """'L2' when `nbytes` fit in the card's L2 (repeated calls then read
+    L2, not HBM), else 'HBM'."""
+    l2 = getattr(torch.cuda.get_device_properties(device), "L2_cache_size",
+                 0)
+    return "not known" if not l2 else "L2" if nbytes <= l2 else "HBM"
 
 
 def compare_dia(phase: str, mats: dict, rng) -> dict:
@@ -706,6 +751,192 @@ def phase_dia_lsc(dev) -> dict:
     return dict(launches=launches, iters=res.iters, seconds=secs, cmp=cmp)
 
 
+def _versus_k2(phase: str, kernel: str, label: str, got, k2) -> dict:
+    """max|kernel - K2| on the same state, and whether they are bit-equal."""
+    torch.cuda.synchronize()
+    diff = float((got - k2).abs().max())
+    equal = bool(torch.equal(got, k2))
+    say(phase, kernel=kernel, case=repr(label), max_abs_diff_vs_K2=f"{diff:.3e}",
+        bit_equal_to_K2=equal)
+    return dict(diff=diff, equal=equal)
+
+
+def phase_halo_kernels(dev) -> dict:
+    """K3 and K4 against their plain versions and against K2, f32 and f64,
+    random theta in [0.1, 0.9] and a random state (numpy seed 0). GB/s
+    counts the 13-plane minimum (K3 on a band: its 8 + 5 planes of n_loc
+    rows plus the 2h halo rows of the 6 extended planes); `extend` adds a
+    torch.cat copy of the state, timed with it. K2's time on the same
+    state is the baseline."""
+    rng = np.random.default_rng(0)
+    params = dict(c=1.0, d=-1.0, xi=1.0, eta_n=100.0, eta_s=1.0)
+    res = {}
+    phase = "halo_kernels"
+    for n in sorted({BAND_N, *EXTEND_N, *STAGED_N}):
+        cell, xpt, ypt = (rng.uniform(0.1, 0.9, (n, n)) for _ in range(3))
+        state = rng.normal(size=(5, n, n))
+        for dtype in (torch.float32, torch.float64):
+            tag = "f32" if dtype == torch.float32 else "f64"
+            op = operator_from_numpy(cell, xpt, ypt, params, device=dev,
+                                     dtype=dtype)
+            tn, wx, wy = (op.phase_n.cell, op.phase_n.xface_pt,
+                          op.phase_n.yface_pt)
+            x = torch.as_tensor(state, dtype=dtype, device=dev)
+            p, dx, dy = op.params, op.grid.dx, op.grid.dy
+            args = (tn, wx, wy, x, p, dx, dy)
+            elt = x.element_size()
+            k2 = cuda_stencil.a_apply(*args)
+            k2_ms = median_ms(lambda: cuda_stencil.a_apply(*args))
+            nbytes = 13 * n * n * elt
+            say(phase, kernel=f"a_apply_{tag}", n=n, ms=f"{k2_ms:.5f}",
+                gb_per_s=f"{nbytes / (k2_ms * 1e-3) / 1e9:.1f}",
+                resident=_resident(nbytes, dev),
+                role="K2 baseline on the same state")
+            if n == BAND_N:
+                h, nl, r0 = BAND_H, BAND_ROWS, BAND_R0
+                band = (tn[r0 - h:r0 + nl + h].contiguous(),
+                        wx[r0:r0 + nl].contiguous(),
+                        wy[r0:r0 + nl].contiguous(),
+                        x[:, r0 - h:r0 + nl + h].contiguous(), p, dx, dy, h)
+                label = (f"band rows {r0}..{r0 + nl - 1} of n={n}, h={h} "
+                         "neighbour rows")
+                r = _compare("a_apply_band", label, dtype,
+                             lambda: cuda_stencil.a_apply_band(*band),
+                             lambda: cuda_stencil.a_apply_band_reference(
+                                 *band),
+                             (13 * nl + 12 * h) * n * elt, phase)
+                r.update(_versus_k2(phase, f"a_apply_band_{tag}", label,
+                                    cuda_stencil.a_apply_band(*band),
+                                    k2[:, r0:r0 + nl]))
+                res[("band", dtype)] = r
+            if n in EXTEND_N:
+                t_ext, x_ext = _extend_rows(tn, 1), _extend_rows(x, 1)
+                ext = (t_ext, wx, wy, x_ext, p, dx, dy, 1)
+                label = f"n={n}, h=1 (the extend apply's band)"
+                r = _compare("a_apply_band", label, dtype,
+                             lambda: cuda_stencil.a_apply_band(*ext),
+                             lambda: cuda_stencil.a_apply_band_reference(
+                                 *ext), (13 * n + 12) * n * elt, phase)
+                mv = make_fused_apply_kernel(op, "extend")
+                r.update(_versus_k2(phase, f"a_apply_band_{tag}", label,
+                                    mv(x), k2))
+                r["extend_ms"] = median_ms(lambda: mv(x))
+                say(phase, kernel=f"extend_{tag}", n=n,
+                    ms=f"{r['extend_ms']:.5f}",
+                    cat_ms=f"{r['extend_ms'] - r['ms']:.5f}",
+                    role="torch.cat of the wrap rows + K3")
+                res[("extend", n, dtype)] = r
+            if n in STAGED_N:
+                label = f"n={n}, tile={cuda_stencil.STAGED_TILE}"
+                r = _compare("a_apply_staged", label, dtype,
+                             lambda: cuda_stencil.a_apply_staged(*args),
+                             lambda: cuda_stencil.a_apply_reference(*args),
+                             nbytes, phase)
+                r.update(_versus_k2(phase, f"a_apply_staged_{tag}", label,
+                                    cuda_stencil.a_apply_staged(*args), k2))
+                r["k2_ms"] = k2_ms
+                res[("staged", n, dtype)] = r
+            del op, x, k2
+    return res
+
+
+def phase_bench(dev) -> dict:
+    """The A-apply race of `python -m mpbp_tpu_torch.bench`, in process."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = bench.run(512, dev)
+    torch.cuda.synchronize()
+    launches = {k: cuda_stencil.LAUNCHES[k]
+                for k in ("a_apply", "a_apply_band", "a_apply_staged")}
+    for r in out["race"]:
+        say("bench", candidate=repr(r["name"]),
+            graph_us_per_apply=f"{r['graph_us']:.3f}",
+            eager_us_per_apply=f"{r['eager_us']:.3f}")
+    say("bench", winner=repr(out["winner"]), parity=f"{out['parity']:.2e}",
+        graph_us=f"{out['graph_us']:.3f}",
+        graph_best_us=f"{out['graph_best_us']:.3f}",
+        eager_us=f"{out['eager_us']:.3f}",
+        implied_gb_per_s=f"{out['implied_gbs']:.1f}",
+        resident=out["resident"], copy_gb_per_s=f"{out['copy_gbs']:.1f}",
+        card=repr(out["card"]), launches=json.dumps(launches),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    say("bench", json=json.dumps(out["result"]))
+    check(out["result"]["value"] > 0, "bench measured no rate")
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched by the bench race")
+    return out
+
+
+def phase_ir_slice(dev) -> dict:
+    """The ir time-to-solve benchmark at 512^2 (bench_solve), cold and warm
+    with K2 as the f32 matvec, then warm with K4 and with K3 on the same
+    setup; each run's own K1-K4 launches. Then solve_multiphase's ir solve at
+    n=64 and the per-iteration true-residual monitor at n=16."""
+    args = bench_solve.parse_args(IR_ARGS + ["--device", str(dev)])
+    t0 = time.perf_counter()
+    setup = bench_solve.build(args)
+    say("ir_slice", setup_s=f"{setup.setup_s:.2f}", pc_s=f"{setup.pc_s:.2f}",
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    kernel_of = {"inkernel": "a_apply", "pipelined": "a_apply_staged",
+                 "extend": "a_apply_band"}
+    runs = {}
+    for label, halo in (("cold", "inkernel"), ("warm", "inkernel"),
+                        ("warm", "pipelined"), ("warm", "extend")):
+        mv32 = bench_solve.ir_matvec(setup, halo)
+        torch.cuda.synchronize()
+        _reset_counts()
+        run = bench_solve.solve(args, setup, mv32)
+        launches = dict(cuda_stencil.LAUNCHES)
+        l2 = norms_report(run["x"], setup.u64, setup.op64.grid.dx,
+                          setup.op64.grid.dy)["l2"]
+        say("ir_slice", run=label, halo=halo, outer=run["outer_iters"],
+            inner=run["inner_iters"], relres=f"{run['relres']:.3e}",
+            true_relres=f"{run['true_relres']:.3e}", l2=f"{l2:.6e}",
+            seconds=f"{run['seconds']:.3f}", launches=json.dumps(launches))
+        check(run["converged"], f"ir {label} {halo} did not converge")
+        check(run["true_relres"] < 1e-8,
+              f"ir {halo} true relres {run['true_relres']:.3e} >= 1e-8")
+        check(abs(l2 - L2_DISCRETIZATION) <= 0.05 * L2_DISCRETIZATION,
+              f"ir {halo} L2 {l2:.6e} not within 5% of {L2_DISCRETIZATION}")
+        check(bool(torch.isfinite(run["x"]).all()),
+              "ir solution has non-finite values")
+        for k in ("f_apply", kernel_of[halo]):
+            check(launches[k] > 0, f"kernel {k} was not launched by the "
+                                   f"ir {halo} solve")
+        runs[(label, halo)] = dict(run, l2=l2, launches=launches)
+    del setup
+
+    t0 = time.perf_counter()
+    rep = solve_multiphase(**IR_N64, device=dev)
+    torch.cuda.synchronize()
+    l2 = rep.error_norms["l2"]
+    say("ir_slice", entry="solve_multiphase(precision='ir')", n=64,
+        inner=rep.iters, jax_inner=IR_N64_JAX_INNER,
+        relres=f"{rep.relres:.3e}",
+        true_relres=f"{rep.params['true_relres']:.3e}", l2=f"{l2:.6e}",
+        jax_l2=IR_N64_L2, seconds=f"{time.perf_counter() - t0:.2f}")
+    check(rep.converged and rep.params["true_relres"] < 1e-8,
+          "ir n=64 did not converge to 1e-8")
+    check(abs(l2 - IR_N64_L2) <= 0.01 * IR_N64_L2,
+          f"ir n=64 L2 {l2:.6e} not within 1% of {IR_N64_L2}")
+
+    rep = solve_multiphase(**MONITOR, device=dev)
+    hist = np.asarray(rep.params["true_res_history"])
+    rec = rep.res_history[1:len(hist) + 1] / rep.res_history[0]
+    # the JAX package's test of the monitor: rtol 1e-6, atol 1e-10
+    gap = float(np.max(np.abs(hist - rec) - 1e-6 * np.abs(rec)))
+    say("ir_slice", entry="true_res_monitor", n=16, iters=rep.iters,
+        entries=len(hist), last_true_relres=f"{hist[-1]:.3e}",
+        excess_over_rtol_1e_6=f"{gap:.2e}")
+    check(rep.converged and len(hist) == rep.iters,
+          "true_res_monitor: not converged or one entry per iteration "
+          "missing")
+    check(hist[-1] < 10 * MONITOR["tol"] and gap <= 1e-10,
+          "true_res_monitor does not track the recurrence")
+    return runs
+
+
 def main() -> None:
     name, _ = phase_device()
     dev = torch.device("cuda", 0)
@@ -721,6 +952,9 @@ def main() -> None:
     ilu_cmp = phase_ilu_layers(dev)
     phase_ilu_level(dev)
     dia = phase_dia_lsc(dev)
+    halo = phase_halo_kernels(dev)
+    phase_bench(dev)
+    ir = phase_ir_slice(dev)
     kernels = []
     for kname, tag in (("f_apply", "f32"), ("a_apply", "f64")):
         r = kres[(kname, 512, tag)]
@@ -731,6 +965,21 @@ def main() -> None:
             launches=runs["warm"]["launches"][kname],
             max_abs_err=r["err"], max_abs_ref=r["scale"],
             ms=r["ms"], plain_ms=r["plain_ms"]))
+    # K3 and K4 at the shapes the ir f32 solve gives them, with the
+    # launches of that solve's --halo extend / pipelined run
+    for kname, r, label, launches in (
+            ("a_apply_band", halo[("extend", 512, torch.float32)],
+             "K3, f32, n=512 extended by h=1: the ir --halo extend matvec",
+             ir[("warm", "extend")]["launches"]["a_apply_band"]),
+            ("a_apply_staged", halo[("staged", 512, torch.float32)],
+             f"K4, f32, n=512, tile {cuda_stencil.STAGED_TILE}: the ir "
+             "--halo pipelined matvec",
+             ir[("warm", "pipelined")]["launches"]["a_apply_staged"])):
+        kernels.append(dict(
+            name=f"{kname} ({label})", route="cuda", source=SOURCE[kname],
+            replaces=REPLACES[kname], launches=launches,
+            max_abs_err=r["err"], max_abs_ref=r["scale"], ms=r["ms"],
+            plain_ms=r["plain_ms"]))
     # each sparse kernel: its f64 comparison on an operand of its path, and
     # the launches of its path's run
     nl, nd = ILU_SLICE["n"], DIA_LSC_N

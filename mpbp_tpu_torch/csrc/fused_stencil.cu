@@ -1,24 +1,41 @@
-// Fused multiphase stencil kernels K1 (F-apply) and K2 (A-apply) for Hopper.
+// Fused multiphase stencil kernels K1-K4 for Hopper.
 //
 // Replaces the Pallas TPU kernels of mpbp_tpu/ops/pallas_stencil.py:
-//   f_apply_f32 / f_apply_f64  <- velocity_pallas_apply_planes (K1, NF = 4)
-//   a_apply_f32 / a_apply_f64  <- multiphase_pallas_apply_inkernel_halo (K2, NF = 5)
+//   f_apply_f32 / f_apply_f64    <- velocity_pallas_apply_planes (K1, NF = 4)
+//   a_apply_f32 / a_apply_f64    <- multiphase_pallas_apply_inkernel_halo
+//                                   (K2, NF = 5)
+//   a_apply_band_f32 / _f64      <- build_fused_tile_call (K3): A on a row
+//                                   band whose +-h halo rows arrive extended
+//   a_apply_staged_f32 / _f64    <- multiphase_pallas_apply_pipelined (K4):
+//                                   A with the next tile's reads in flight
+//                                   while the current tile computes
 //
-// Each thread computes every output plane at one grid point (r, c), term for
-// term as mpbp_tpu/models/fused.py writes them (flux form: differences first,
-// then scale; Ts = 1 - Tn taken at each neighbour). Neighbours are read with
-// periodic indices; the stencil radius is 1.
+// The per-point arithmetic is written once (point_apply), term for term as
+// mpbp_tpu/models/fused.py writes it (flux form: differences first, then
+// scale; Ts = 1 - Tn taken at each neighbour), and templated over the plane
+// accessor that serves a neighbour read at (dr, dc), |dr|, |dc| <= 1:
+//   Plane      global plane, rows and columns wrap periodically (K1, K2)
+//   BandPlane  global extended-row band: no row wrap, columns wrap (K3)
+//   TilePlane  shared-memory footprint of one tile (K4)
+// So K2, K3 and K4 run the same expressions and differ at most by the
+// compiler's FMA contraction.
 //
-// Bound: HBM bytes. K1 reads 7 planes and writes 4, K2 reads 8 and writes 5;
-// ~120 flops per point is far below the card's flop/byte balance. One pass,
-// no coefficient planes, each output written once; the ~40 neighbour reads
-// per point are shared between the threads of a 32x8 block through L1/L2.
+// Bound: HBM bytes. K1 reads 7 planes and writes 4, K2-K4 read 8 and write
+// 5; ~120 flops per point is far below the card's flop/byte balance. One
+// pass, no coefficient planes, each output written once. K1-K3 share the
+// ~40 neighbour reads per point between the threads of a 32x8 block through
+// L1/L2. K4 stages each 2-D tile's (TR+2) x (TC+2) footprint of theta and
+// the 5 state planes in shared memory with cp.async, double-buffered: a
+// persistent CTA starts the copies of its next tile before it computes the
+// current one.
 //
 // Inputs: theta_n (n, n), pointwise face planes Wnx, Wny (n, n), state
-// (NF, n, n) = [un, vn, us, vs(, p)]; output (NF, n, n). All row-major,
-// contiguous. Scalars arrive as double and are rounded to T once, as the
-// plain version's Python-float scalars are.
+// (NF, n, n) = [un, vn, us, vs(, p)]; output (NF, n, n). K3 takes theta
+// (n_loc+2h, n), Wnx/Wny (n_loc, n), state (5, n_loc+2h, n) and writes
+// (5, n_loc, n). All row-major, contiguous. Scalars arrive as double and
+// are rounded to T once, as the plain version's Python-float scalars are.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -31,7 +48,28 @@ struct Coefs {
   T dx, dy;
 };
 
-// One plane, read at (r+dr, c+dc) with periodic wrap.
+template <typename T>
+Coefs<T> make_coefs(double c, double d, double xi, double eta_n,
+                    double eta_s, double d_p, double d_div, double dx,
+                    double dy) {
+  Coefs<T> k;
+  k.c = T(c);
+  k.d = T(d);
+  k.xi = T(xi);
+  k.d_eta_n = T(d * eta_n);
+  k.d_eta_s = T(d * eta_s);
+  k.d_div = T(d_div);
+  k.ix2 = T(1.0 / (dx * dx));
+  k.iy2 = T(1.0 / (dy * dy));
+  k.ixy = T(1.0 / (dx * dy));
+  k.dpidx = T(d_p * (1.0 / dx));
+  k.dpidy = T(d_p * (1.0 / dy));
+  k.dx = T(dx);
+  k.dy = T(dy);
+  return k;
+}
+
+// K1/K2: one (n, n) plane, read at (r+dr, c+dc) with periodic wrap.
 template <typename T>
 struct Plane {
   const T* __restrict__ p;
@@ -43,20 +81,44 @@ struct Plane {
   }
 };
 
+// K3: one (n_loc+2h, n) extended plane; re = r + h is the point's extended
+// row. Rows never wrap (the halo rows are whatever the caller put there);
+// columns wrap, since full rows are present.
+template <typename T>
+struct BandPlane {
+  const T* __restrict__ p;
+  int n, re, c;
+  __device__ __forceinline__ T operator()(int dr, int dc) const {
+    const int cc = (c + dc + n) % n;
+    return __ldg(p + static_cast<size_t>(re + dr) * n + cc);
+  }
+};
+
+// K4: one plane's (TR+2) x (TC+2) footprint in shared memory, row stride
+// ld = TC+2; at = (lr+1)*ld + lc+1 is the point's place in it.
+template <typename T>
+struct TilePlane {
+  const T* s;
+  int ld, at;
+  __device__ __forceinline__ T operator()(int dr, int dc) const {
+    return s[at + dr * ld + dc];
+  }
+};
+
 // Theta of one phase: theta_n itself, or 1 - theta_n at each neighbour.
-template <typename T, bool SOLVENT>
+template <typename T, bool SOLVENT, typename P>
 struct Theta {
-  Plane<T> tn;
+  P tn;
   __device__ __forceinline__ T operator()(int dr, int dc) const {
     return SOLVENT ? T(1) - tn(dr, dc) : tn(dr, dc);
   }
 };
 
 // models/fused.py _phase_momentum
-template <typename T, bool SOLVENT, bool WITH_P>
+template <typename T, bool SOLVENT, bool WITH_P, typename P>
 __device__ __forceinline__ void phase_momentum(
-    const Theta<T, SOLVENT>& th, const Plane<T>& u, const Plane<T>& v,
-    const Plane<T>& p, const Coefs<T>& k, T& Lu, T& Lv, T& Gx, T& Gy) {
+    const Theta<T, SOLVENT, P>& th, const P& u, const P& v, const P& p,
+    const Coefs<T>& k, T& Lu, T& Lv, T& Gx, T& Gy) {
   const T T0 = th(0, 0);
   const T Tw = th(0, -1);
   const T Tu_ = th(-1, 0);
@@ -92,9 +154,9 @@ __device__ __forceinline__ void phase_momentum(
 }
 
 // models/fused.py _phase_divergence
-template <typename T, bool SOLVENT>
+template <typename T, bool SOLVENT, typename P>
 __device__ __forceinline__ T phase_divergence(
-    const Theta<T, SOLVENT>& th, const Plane<T>& u, const Plane<T>& v,
+    const Theta<T, SOLVENT, P>& th, const P& u, const P& v,
     const Coefs<T>& k) {
   const T T0 = th(0, 0);
   const T tx = T(0.5) * (T0 + th(0, -1));
@@ -105,28 +167,18 @@ __device__ __forceinline__ T phase_divergence(
           + (ty * v(0, 0) - tyS * v(1, 0)) / k.dy);
 }
 
-// models/fused.py velocity_block_math (NF = 4) and multiphase_apply_math
-// (NF = 5).
-template <typename T, int NF>
-__global__ void __launch_bounds__(256)
-fused_stencil_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
-                     const T* __restrict__ wny, const T* __restrict__ x,
-                     T* __restrict__ out, int n, Coefs<T> k) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= n || c >= n) return;
-  const size_t plane = static_cast<size_t>(n) * n;
-  const size_t at = static_cast<size_t>(r) * n + c;
+// The NF outputs at one point: models/fused.py velocity_block_math (NF = 4)
+// and multiphase_apply_math (NF = 5). Wnx, Wny are the pointwise face
+// planes' values at the point; pr is not read when NF = 4.
+template <typename T, int NF, typename P>
+__device__ __forceinline__ void point_apply(
+    const P& tn, const P& un, const P& vn, const P& us, const P& vs,
+    const P& pr, T Wnx, T Wny, const Coefs<T>& k, T (&out)[NF]) {
   constexpr bool WITH_P = (NF == 5);
-
-  const Plane<T> un{x, n, r, c}, vn{x + plane, n, r, c};
-  const Plane<T> us{x + 2 * plane, n, r, c}, vs{x + 3 * plane, n, r, c};
-  const Plane<T> pr{WITH_P ? x + 4 * plane : x, n, r, c};
-  const Theta<T, false> thn{Plane<T>{tn, n, r, c}};
-  const Theta<T, true> ths{Plane<T>{tn, n, r, c}};
+  const Theta<T, false, P> thn{tn};
+  const Theta<T, true, P> ths{tn};
 
   const T Tn0 = thn(0, 0);
-  const T Wnx = __ldg(wnx + at), Wny = __ldg(wny + at);
   const T Wsx = T(1) - Wnx, Wsy = T(1) - Wny;
 
   // drag diagonal xi*t*(1-t) from face-averaged theta
@@ -141,62 +193,255 @@ fused_stencil_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
 
   const T un0 = un(0, 0), vn0 = vn(0, 0), us0 = us(0, 0), vs0 = vs(0, 0);
 
-  out[at] = (k.c * Wnx * un0 - k.d * XIx * un0 + k.d * XIx * us0
-             + k.d_eta_n * Lun + Gxn);
-  out[plane + at] = (k.c * Wny * vn0 - k.d * XIy * vn0 + k.d * XIy * vs0
-                     + k.d_eta_n * Lvn + Gyn);
-  out[2 * plane + at] = (k.c * Wsx * us0 - k.d * XIx * us0 + k.d * XIx * un0
-                         + k.d_eta_s * Lus + Gxs);
-  out[3 * plane + at] = (k.c * Wsy * vs0 - k.d * XIy * vs0 + k.d * XIy * vn0
-                         + k.d_eta_s * Lvs + Gys);
-  if (WITH_P) {
+  out[0] = (k.c * Wnx * un0 - k.d * XIx * un0 + k.d * XIx * us0
+            + k.d_eta_n * Lun + Gxn);
+  out[1] = (k.c * Wny * vn0 - k.d * XIy * vn0 + k.d * XIy * vs0
+            + k.d_eta_n * Lvn + Gyn);
+  out[2] = (k.c * Wsx * us0 - k.d * XIx * us0 + k.d * XIx * un0
+            + k.d_eta_s * Lus + Gxs);
+  out[3] = (k.c * Wsy * vs0 - k.d * XIy * vs0 + k.d * XIy * vn0
+            + k.d_eta_s * Lvs + Gys);
+  if constexpr (WITH_P) {
     const T div = (phase_divergence<T, false>(thn, un, vn, k)
                    + phase_divergence<T, true>(ths, us, vs, k));
-    out[4 * plane + at] = k.d_div * div;
+    out[4] = k.d_div * div;
   }
 }
 
+// K1 (NF = 4) and K2 (NF = 5): one thread per point of the periodic grid.
+template <typename T, int NF>
+__global__ void __launch_bounds__(256)
+fused_stencil_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
+                     const T* __restrict__ wny, const T* __restrict__ x,
+                     T* __restrict__ out, int n, Coefs<T> k) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= n || c >= n) return;
+  const size_t plane = static_cast<size_t>(n) * n;
+  const size_t at = static_cast<size_t>(r) * n + c;
+
+  const Plane<T> un{x, n, r, c}, vn{x + plane, n, r, c};
+  const Plane<T> us{x + 2 * plane, n, r, c}, vs{x + 3 * plane, n, r, c};
+  const Plane<T> pr{NF == 5 ? x + 4 * plane : x, n, r, c};
+  T o[NF];
+  point_apply<T, NF>(Plane<T>{tn, n, r, c}, un, vn, us, vs, pr,
+                     __ldg(wnx + at), __ldg(wny + at), k, o);
+#pragma unroll
+  for (int f = 0; f < NF; ++f) out[f * plane + at] = o[f];
+}
+
+// K3: one thread per point of an (n_loc, n) band; band row r reads
+// extended rows r+h-1 .. r+h+1.
+template <typename T>
+__global__ void __launch_bounds__(256)
+band_kernel(const T* __restrict__ tn_ext, const T* __restrict__ wnx,
+            const T* __restrict__ wny, const T* __restrict__ x_ext,
+            T* __restrict__ out, int n_loc, int n, int h, Coefs<T> k) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= n_loc || c >= n) return;
+  const size_t ext = static_cast<size_t>(n_loc + 2 * h) * n;
+  const size_t plane = static_cast<size_t>(n_loc) * n;
+  const size_t at = static_cast<size_t>(r) * n + c;
+  const int re = r + h;
+
+  const BandPlane<T> un{x_ext, n, re, c}, vn{x_ext + ext, n, re, c};
+  const BandPlane<T> us{x_ext + 2 * ext, n, re, c};
+  const BandPlane<T> vs{x_ext + 3 * ext, n, re, c};
+  const BandPlane<T> pr{x_ext + 4 * ext, n, re, c};
+  T o[5];
+  point_apply<T, 5>(BandPlane<T>{tn_ext, n, re, c}, un, vn, us, vs, pr,
+                    __ldg(wnx + at), __ldg(wny + at), k, o);
+#pragma unroll
+  for (int f = 0; f < 5; ++f) out[f * plane + at] = o[f];
+}
+
+constexpr int kStagedThreads = 256;
+
+// K4: persistent CTAs walk the (TR, TC) output tiles t = blockIdx.x,
+// blockIdx.x + gridDim.x, ... Shared memory holds two slots, each the
+// (TR+2) x (TC+2) periodic footprint of theta and the 5 state planes. The
+// copies of tile t+gridDim.x go into the other slot (cp.async, one element
+// each, the wrap done per element) before tile t is computed from its slot;
+// the 5 outputs go straight to global memory. TC is a multiple of 32: each
+// warp takes whole footprint and tile rows, its lanes adjacent columns.
+template <typename T>
+__global__ void __launch_bounds__(kStagedThreads)
+staged_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
+              const T* __restrict__ wny, const T* __restrict__ x,
+              T* __restrict__ out, int n, int tr, int tc, Coefs<T> k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int ld = tc + 2;
+  const int fp_rows = tr + 2;
+  const int fp = fp_rows * ld;          // one plane's footprint
+  const int slot_elems = 6 * fp;        // theta + 5 state planes
+  const size_t plane = static_cast<size_t>(n) * n;
+  const int tiles_c = (n + tc - 1) / tc;
+  const int ntiles = ((n + tr - 1) / tr) * tiles_c;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  auto wrap = [n](int i) {
+    if (i < 0) i += n;
+    if (i >= n) i %= n;
+    return i;
+  };
+
+  auto prefetch = [&](int slot, int t) {
+    T* s = smem + slot * slot_elems;
+    const int r0 = (t / tiles_c) * tr - 1;
+    const int c0 = (t % tiles_c) * tc - 1;
+    for (int row = warp; row < 6 * fp_rows; row += nwarps) {
+      const int q = row / fp_rows;
+      const int lr = row - q * fp_rows;
+      const T* src = (q == 0 ? tn : x + (q - 1) * plane)
+                     + static_cast<size_t>(wrap(r0 + lr)) * n;
+      T* dst = s + q * fp + lr * ld;
+      for (int lc = lane; lc < ld; lc += 32)
+        __pipeline_memcpy_async(dst + lc, src + wrap(c0 + lc), sizeof(T));
+    }
+  };
+
+  auto compute = [&](int slot, int t) {
+    const T* s = smem + slot * slot_elems;
+    const int r0 = (t / tiles_c) * tr;
+    const int c0 = (t % tiles_c) * tc;
+    for (int lr = warp; lr < tr && r0 + lr < n; lr += nwarps) {
+      const int r = r0 + lr;
+      for (int lc = lane; lc < tc && c0 + lc < n; lc += 32) {
+        const int c = c0 + lc;
+        const int a = (lr + 1) * ld + lc + 1;
+        const size_t at = static_cast<size_t>(r) * n + c;
+        const TilePlane<T> un{s + fp, ld, a}, vn{s + 2 * fp, ld, a};
+        const TilePlane<T> us{s + 3 * fp, ld, a}, vs{s + 4 * fp, ld, a};
+        const TilePlane<T> pr{s + 5 * fp, ld, a};
+        T o[5];
+        point_apply<T, 5>(TilePlane<T>{s, ld, a}, un, vn, us, vs, pr,
+                          __ldg(wnx + at), __ldg(wny + at), k, o);
+#pragma unroll
+        for (int f = 0; f < 5; ++f) out[f * plane + at] = o[f];
+      }
+    }
+  };
+
+  int t = blockIdx.x;
+  if (t < ntiles) prefetch(0, t);
+  __pipeline_commit();
+  for (int it = 0; t < ntiles; ++it, t += gridDim.x) {
+    const int next = t + gridDim.x;
+    if (next < ntiles) prefetch((it + 1) & 1, next);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);   // this thread's copies of tile t landed
+    __syncthreads();            // ... and every other thread's
+    compute(it & 1, t);
+    __syncthreads();            // slot it&1 is refilled next iteration
+  }
+}
+
+const dim3 kBlock(32, 8);
+
 template <typename T, int NF>
 int launch(const T* tn, const T* wnx, const T* wny, const T* x, T* out,
-           int n, double c, double d, double xi, double eta_n, double eta_s,
-           double d_p, double d_div, double dx, double dy, void* stream) {
-  Coefs<T> k;
-  k.c = T(c);
-  k.d = T(d);
-  k.xi = T(xi);
-  k.d_eta_n = T(d * eta_n);
-  k.d_eta_s = T(d * eta_s);
-  k.d_div = T(d_div);
-  k.ix2 = T(1.0 / (dx * dx));
-  k.iy2 = T(1.0 / (dy * dy));
-  k.ixy = T(1.0 / (dx * dy));
-  k.dpidx = T(d_p * (1.0 / dx));
-  k.dpidy = T(d_p * (1.0 / dy));
-  k.dx = T(dx);
-  k.dy = T(dy);
-  const dim3 block(32, 8);
-  const dim3 grid((n + block.x - 1) / block.x, (n + block.y - 1) / block.y);
-  fused_stencil_kernel<T, NF><<<grid, block, 0,
+           int n, const Coefs<T>& k, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kBlock.x - 1) / kBlock.x, (n + kBlock.y - 1) / kBlock.y);
+  fused_stencil_kernel<T, NF><<<grid, kBlock, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       tn, wnx, wny, x, out, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_band(const T* tn_ext, const T* wnx, const T* wny, const T* x_ext,
+                T* out, int n_loc, int n, int h, const Coefs<T>& k,
+                void* stream) {
+  if (n_loc < 1 || n < 1 || h < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kBlock.x - 1) / kBlock.x,
+                  (n_loc + kBlock.y - 1) / kBlock.y);
+  band_kernel<T><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      tn_ext, wnx, wny, x_ext, out, n_loc, n, h, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_staged(const T* tn, const T* wnx, const T* wny, const T* x,
+                  T* out, int n, int tr, int tc, const Coefs<T>& k,
+                  void* stream) {
+  if (n < 1 || tr < 1 || tc < 32 || tc % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2 * 6 * static_cast<size_t>(tr + 2) * (tc + 2)
+                      * sizeof(T);
+  // above the default 48 KB a kernel must opt in; done once per size
+  // increase, so a launch inside a CUDA graph capture makes no such call
+  static size_t opted = 48 * 1024;
+  cudaError_t err;
+  if (smem > opted) {
+    err = cudaFuncSetAttribute(staged_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = smem;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, staged_kernel<T>, kStagedThreads, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long ntiles = static_cast<long long>((n + tr - 1) / tr)
+                           * ((n + tc - 1) / tc);
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  const int grid = static_cast<int>(ntiles < resident ? ntiles : resident);
+  staged_kernel<T><<<grid, kStagedThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      tn, wnx, wny, x, out, n, tr, tc, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-#define FUSED_STENCIL_ENTRY(NAME, T, NF)                                     \
-  extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,   \
-                      T* out, int n, double c, double d, double xi,          \
-                      double eta_n, double eta_s, double d_p, double d_div,  \
-                      double dx, double dy, void* stream) {                  \
-    return launch<T, NF>(tn, wnx, wny, x, out, n, c, d, xi, eta_n, eta_s,    \
-                         d_p, d_div, dx, dy, stream);                        \
+#define COEF_PARAMS                                                         \
+  double c, double d, double xi, double eta_n, double eta_s, double d_p,   \
+      double d_div, double dx, double dy
+#define COEF_ARGS(T) \
+  make_coefs<T>(c, d, xi, eta_n, eta_s, d_p, d_div, dx, dy)
+
+#define FUSED_STENCIL_ENTRY(NAME, T, NF)                                    \
+  extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
+                      T* out, int n, COEF_PARAMS, void* stream) {           \
+    return launch<T, NF>(tn, wnx, wny, x, out, n, COEF_ARGS(T), stream);    \
+  }
+
+#define BAND_ENTRY(NAME, T)                                                 \
+  extern "C" int NAME(const T* tn_ext, const T* wnx, const T* wny,          \
+                      const T* x_ext, T* out, int n_loc, int n, int h,      \
+                      COEF_PARAMS, void* stream) {                          \
+    return launch_band<T>(tn_ext, wnx, wny, x_ext, out, n_loc, n, h,        \
+                          COEF_ARGS(T), stream);                            \
+  }
+
+#define STAGED_ENTRY(NAME, T)                                               \
+  extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
+                      T* out, int n, int tr, int tc, COEF_PARAMS,           \
+                      void* stream) {                                       \
+    return launch_staged<T>(tn, wnx, wny, x, out, n, tr, tc, COEF_ARGS(T),  \
+                            stream);                                        \
   }
 
 FUSED_STENCIL_ENTRY(f_apply_f32, float, 4)
 FUSED_STENCIL_ENTRY(f_apply_f64, double, 4)
 FUSED_STENCIL_ENTRY(a_apply_f32, float, 5)
 FUSED_STENCIL_ENTRY(a_apply_f64, double, 5)
+BAND_ENTRY(a_apply_band_f32, float)
+BAND_ENTRY(a_apply_band_f64, double)
+STAGED_ENTRY(a_apply_staged_f32, float)
+STAGED_ENTRY(a_apply_staged_f64, double)
 
 extern "C" const char* fused_stencil_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

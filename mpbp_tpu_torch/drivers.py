@@ -1,6 +1,6 @@
 """High-level solve workflows returning structured reports (port of
 `mpbp_tpu/drivers.py`: the multigrid, Krylov and ILU kinds, precision
-full/hybrid).
+full/hybrid/ir, the per-iteration true-residual monitor).
 
 Everything is assembled in f64 (or the requested dtype) directly on the
 requested device. The outer matvec is kernel K2 and the F matvecs of the
@@ -26,6 +26,7 @@ from mpbp_tpu_torch.models.multiphase import (ALL_FIELDS, MultiphaseOperator,
                                               make_multiphase_operator)
 from mpbp_tpu_torch.solvers import gmres as krylov
 from mpbp_tpu_torch.solvers import preconditioners as pcs
+from mpbp_tpu_torch.solvers.mixed import block_scales, fgmres_ir
 from mpbp_tpu_torch.solvers.multigrid import MGPressureSolver, MGVelocitySolver
 from mpbp_tpu_torch.utils.norms import norms_report
 
@@ -34,9 +35,6 @@ from mpbp_tpu_torch.utils.norms import norms_report
 _NOT_PORTED = {
     "exact_schur": "queue 1 item 7 (exact-Schur and block preconditioners)",
     "lsc_mg_krylov": "queue 1 item 8 (remaining driver kinds)",
-    "ir": "queue 1 item 8 (precision='ir', solvers/mixed.py)",
-    "true_res_monitor": "queue 1 item 8 (true_res_monitor, with "
-                        "fgmres_resumable)",
 }
 
 
@@ -229,6 +227,8 @@ class _SolveSetup:
     mv: Callable                # flat matvec at the outer dtype
     b_vec: torch.Tensor
     u_vec: torch.Tensor
+    mv32: Callable | None = None        # f32 matvec, K2 (ir mode)
+    scale: torch.Tensor | None = None   # block equilibration (ir mode)
 
 
 _SETUP_CACHE: dict = {}
@@ -258,20 +258,66 @@ def _solve_setup(n, c, d, xi, eta_n, eta_s, problem, dtype, pc, precision,
                                   eta_s=eta_s, dtype=dtype, device=device,
                                   **thn_fn_kwargs)
     u_exact, b = mms.fill_sol_and_rhs(op.grid, prob)
+    mv32, scale = None, None
     if precision == "full":
         M = make_preconditioner(op, pc, dtype=dtype, **pc_kwargs)
     else:
         op32 = make_multiphase_operator(n, c=c, d=d, xi=xi, eta_n=eta_n,
                                         eta_s=eta_s, dtype=torch.float32,
                                         device=device, **thn_fn_kwargs)
-        M = make_preconditioner_mixed(op, op32, pc, **pc_kwargs)
+        if precision == "hybrid":
+            M = make_preconditioner_mixed(op, op32, pc, **pc_kwargs)
+        else:
+            M = make_preconditioner(op32, pc, dtype=torch.float32,
+                                    **pc_kwargs)
+            mv32 = a_matvec(op32)
+            scale = block_scales(op)
     setup = _SolveSetup(op=op, M=M, mv=a_matvec(op),
                         b_vec=pack_fields(op, b),
-                        u_vec=pack_fields(op, u_exact))
+                        u_vec=pack_fields(op, u_exact), mv32=mv32,
+                        scale=scale)
     if len(_SETUP_CACHE) >= _SETUP_CACHE_MAX:
         _SETUP_CACHE.pop(next(iter(_SETUP_CACHE)))
     _SETUP_CACHE[key] = setup
     return setup
+
+
+def _mixed_precision_solve(setup: _SolveSetup, tol: float, maxiter: int,
+                           precision: str,
+                           restart: int | None = None) -> krylov.KrylovResult:
+    """The 'ir'/'hybrid' solve bodies behind solve_multiphase(precision=...),
+    returning a KrylovResult; for 'ir', `iters` counts the inner f32
+    iterations of all outer steps and the history holds the f64 relres
+    after each outer step (see `bench_solve` for the card's runs)."""
+    if precision == "hybrid":
+        return krylov.fgmres(setup.mv, setup.b_vec, tol=tol, maxiter=maxiter,
+                             M=setup.M, restart=restart)
+    res = fgmres_ir(setup.mv, setup.mv32, setup.b_vec, tol=tol,
+                    max_outer=max(maxiter // 25, 4), inner_tol=1e-6,
+                    inner_maxiter=min(maxiter, 150), M32=setup.M,
+                    scale=setup.scale, inner_restart=restart)
+    return krylov.KrylovResult(
+        x=res.x, iters=res.total_inner_iters, relres=res.relres,
+        res_history=np.concatenate([res.history, [np.nan]]),
+        converged=res.converged)
+
+
+def _monitored_solve(setup: _SolveSetup, tol: float, maxiter: int):
+    """FGMRES stepped one iteration at a time (`fgmres_resumable`), with
+    the TRUE relative residual ||b - A x_k|| / ||b|| after every
+    iteration. Returns (KrylovResult, per-iteration true residuals)."""
+    b_vec = setup.b_vec
+    bnorm = float(torch.linalg.norm(b_vec))
+    state, result, true_hist = None, None, []
+    for _ in range(maxiter):
+        result, state = krylov.fgmres_resumable(
+            setup.mv, b_vec, tol=tol, maxiter=maxiter, M=setup.M,
+            state=state, max_steps=1)
+        _, rn = krylov.residual_norm(setup.mv, b_vec, result.x)
+        true_hist.append(float(rn) / bnorm)
+        if result.converged or result.iters >= maxiter:
+            break
+    return result, true_hist
 
 
 def solve_multiphase(n: int = 16, c: float = 1.0, d: float = -1.0,
@@ -290,25 +336,40 @@ def solve_multiphase(n: int = 16, c: float = 1.0, d: float = -1.0,
       'hybrid' - one f64 FGMRES whose LSC PC runs its inner solves in f32
                  with an f64 refinement pass each
                  (make_preconditioner_mixed);
-      'ir'     - not ported yet (raises NotImplementedError).
+      'ir'     - f32 inner FGMRES cycles (f32 matvec K2, f32 PC) with f64
+                 residual refinement (solvers/mixed.fgmres_ir with block
+                 equilibration); `iters` counts the inner iterations.
 
-    `restart` bounds the Krylov basis memory with restarted outer cycles.
-    The true residual ||b - A x|| / ||b|| is verified once at the end, in
+    `restart` bounds the Krylov basis memory: restarted outer cycles for
+    'full'/'hybrid', the inner f32 cycle length for 'ir'.
+
+    `true_res_monitor=True` (precision 'full') steps fgmres_resumable one
+    iteration at a time and recomputes the TRUE residual after each, into
+    params['true_res_history'] (one extra matvec per iteration). It runs
+    one unrestarted cycle: with `restart` it raises ValueError (the JAX
+    package ignores `restart` there). Otherwise the true residual
+    ||b - A x|| / ||b|| is verified once at the end, in
     params['true_relres']."""
     if precision not in ("full", "ir", "hybrid"):
         raise ValueError(f"unknown precision {precision!r}")
-    if precision == "ir":
-        raise _not_ported("ir")
-    if true_res_monitor:
-        raise _not_ported("true_res_monitor")
-    if precision == "hybrid":
+    if true_res_monitor and restart is not None:
+        raise ValueError("true_res_monitor runs one unrestarted FGMRES "
+                         "cycle; it takes no restart")
+    if precision != "full":
         dtype = torch.float64           # the certified outer dtype
 
     setup = _solve_setup(n, c, d, xi, eta_n, eta_s, problem, dtype, pc,
                          precision, device, pc_kwargs)
     op, b_vec = setup.op, setup.b_vec
-    result = krylov.fgmres(setup.mv, b_vec, tol=tol, maxiter=maxiter,
-                           M=setup.M, restart=restart)
+    true_hist = None
+    if precision != "full":
+        result = _mixed_precision_solve(setup, tol, maxiter, precision,
+                                        restart)
+    elif true_res_monitor:
+        result, true_hist = _monitored_solve(setup, tol, maxiter)
+    else:
+        result = krylov.fgmres(setup.mv, b_vec, tol=tol, maxiter=maxiter,
+                               M=setup.M, restart=restart)
 
     err = norms_report(result.x, setup.u_vec, op.grid.dx, op.grid.dy)
     hist = result.res_history[~np.isnan(result.res_history)]
@@ -320,7 +381,9 @@ def solve_multiphase(n: int = 16, c: float = 1.0, d: float = -1.0,
         error_norms=err, x=result.x,
         params=dict(c=c, d=d, xi=xi, eta_n=eta_n, eta_s=eta_s, tol=tol,
                     maxiter=maxiter, problem=problem, true_relres=true_res,
-                    precision=precision, device=str(device)),
+                    precision=precision, device=str(device),
+                    **({"true_res_history": true_hist}
+                       if true_hist is not None else {})),
         status=classify_status(result.converged, hist),
     )
 

@@ -11,7 +11,9 @@ The arithmetic is written once, in `multiphase_apply_math` and
 plain PyTorch versions in `ops/cuda_stencil.py` run it with the periodic
 roll; the CUDA kernels in `csrc/fused_stencil.cu` compute the same
 expressions term for term at one grid point per thread. The `make_*`
-functions here route through the kernel wrappers.
+functions here route through the kernel wrappers; `make_fused_apply_kernel`
+picks one of the three A-apply kernels (K2, K3 on the row-extended state,
+K4).
 """
 
 from __future__ import annotations
@@ -143,6 +145,66 @@ def make_fused_apply(op: MultiphaseOperator) -> Callable:
 
     def mv(vec: torch.Tensor) -> torch.Tensor:
         return a_apply(Tn, Wnx, Wny, vec, params, dx, dy)
+
+    return mv
+
+
+def _extend_rows(x: torch.Tensor, H: int) -> torch.Tensor:
+    """Append periodic wrap rows: (..., n, n) -> (..., n+2H, n)."""
+    return torch.cat([x[..., -H:, :], x, x[..., :H, :]], dim=-2)
+
+
+# the row halo of the `extend` A-apply: the stencil's radius
+_EXTEND_H = 1
+
+
+def make_fused_apply_kernel(op: MultiphaseOperator, halo: str = "inkernel",
+                            tile=None) -> Callable:
+    """The fused A matvec on stacked (5, n, n) tensors through one of the
+    three hand-written A-apply kernels (JAX counterpart:
+    `mpbp_tpu.models.fused.make_fused_apply_pallas`):
+
+      'inkernel'  - kernel K2 (`ops.cuda_stencil.a_apply`), periodic reads
+                    in the kernel; the same matvec as `make_fused_apply`;
+      'extend'    - the periodic wrap rows appended by `torch.cat` before
+                    each call (the TPU path's pre-pass, an extra copy of
+                    the state per matvec, kept to measure what that copy
+                    costs), then kernel K3 (`a_apply_band`) on the band of
+                    all n rows;
+      'pipelined' - kernel K4 (`a_apply_staged`): 2-D tiles double-buffered
+                    in shared memory, `tile` = (rows, cols) or None for
+                    `ops.cuda_stencil.STAGED_TILE`.
+
+    The TPU's `block_rows` (and its VMEM budget) has no counterpart: only K4
+    takes a tile, and K2/K3 refuse one."""
+    from mpbp_tpu_torch.ops.cuda_stencil import (a_apply_band,
+                                                 a_apply_staged, check_tile)
+
+    if halo not in ("inkernel", "extend", "pipelined"):
+        raise ValueError(f"unknown halo {halo!r} "
+                         "(inkernel | extend | pipelined)")
+    if tile is not None and halo != "pipelined":
+        raise ValueError(f"halo={halo!r} takes no tile; only 'pipelined' "
+                         "(kernel K4) is tiled")
+    if halo == "inkernel":
+        return make_fused_apply(op)
+    params = dict(op.params)
+    dx, dy = op.grid.dx, op.grid.dy
+    Tn = op.phase_n.cell
+    Wnx, Wny = op.phase_n.xface_pt, op.phase_n.yface_pt
+
+    if halo == "extend":
+        H = _EXTEND_H
+        Tn_ext = _extend_rows(Tn, H)                # static, built once
+
+        def mv(vec: torch.Tensor) -> torch.Tensor:
+            return a_apply_band(Tn_ext, Wnx, Wny, _extend_rows(vec, H),
+                                params, dx, dy, H)
+    else:
+        tile = check_tile(tile, Tn.dtype)
+
+        def mv(vec: torch.Tensor) -> torch.Tensor:
+            return a_apply_staged(Tn, Wnx, Wny, vec, params, dx, dy, tile)
 
     return mv
 

@@ -36,6 +36,9 @@ _P, _I32, _I64, _F64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # K1/K2: tn, wnx, wny, x, out, n, c, d, xi, eta_n, eta_s, d_p, d_div, dx,
 # dy, stream
 _STENCIL_ARGS = [_P] * 5 + [_I32] + [_F64] * 9 + [_P]
+# K3: tn_ext, wnx, wny, x_ext, out, n_loc, n, h, <the 9 scalars>, stream;
+# K4: tn, wnx, wny, x, out, n, tile_rows, tile_cols, <the 9 scalars>, stream
+_STENCIL3_ARGS = [_P] * 5 + [_I32] * 3 + [_F64] * 9 + [_P]
 # dia_spmv: data, offsets, K, nrows, ncols, x, y, stream
 _DIA_ARGS = [_P, _P, _I32, _I64, _I64, _P, _P, _P]
 # ell_spmv: cols, vals, W, nrows, x, b, inv_d, y, stream
@@ -52,7 +55,9 @@ def _both(name: str, args: list) -> dict:
 # cudaError_t as int, and `<stem>_error_string` names it
 SOURCES = {
     "fused_stencil": {**_both("f_apply", _STENCIL_ARGS),
-                      **_both("a_apply", _STENCIL_ARGS)},
+                      **_both("a_apply", _STENCIL_ARGS),
+                      **_both("a_apply_band", _STENCIL3_ARGS),
+                      **_both("a_apply_staged", _STENCIL3_ARGS)},
     "sparse_spmv": {**_both("dia_spmv", _DIA_ARGS),
                     **_both("ell_spmv", _ELL_ARGS),
                     **_both("ell_spmm", _SPMM_ARGS)},

@@ -12,11 +12,13 @@
 
 Vectors may have any shape (flat or stacked grid fields); the basis adds a
 leading axis. The loops run eagerly; the convergence test costs one host
-sync per iteration.
+sync per iteration. One iteration is `_arnoldi_step` on an `ArnoldiState`,
+so `fgmres_resumable` can stop after any iteration and resume.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -67,10 +69,55 @@ def _host(t: torch.Tensor, npdt) -> np.ndarray:
     return t.detach().cpu().numpy().astype(npdt, copy=False)
 
 
-def _cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
-           m: int, M: Callable, use_z: bool, orthog: str = "cgs2",
-           aug: torch.Tensor | None = None) -> KrylovResult:
-    """One (F)GMRES cycle of at most m iterations.
+@dataclasses.dataclass(eq=False)
+class ArnoldiState:
+    """Mid-solve FGMRES/GMRES state (port of the JAX package's
+    `ArnoldiState`). Resuming with the same (matvec, b, x0, maxiter, M)
+    continues the identical Krylov recurrence. The bases stay on the
+    vectors' device; the rotated Hessenberg, the Givens rotations, the
+    rotated rhs and the history live on the host in the working dtype.
+    A step advances the state in place."""
+
+    j: int                # iterations completed
+    V: torch.Tensor       # (m+1, N) orthonormal basis
+    Z: torch.Tensor       # (m or 0, N) flexible preconditioned basis
+    H: np.ndarray         # (m+1, m) rotated Hessenberg (R factor)
+    cs: np.ndarray        # (m,) Givens cosines
+    sn: np.ndarray        # (m,) Givens sines
+    g: np.ndarray         # (m+1,) rotated rhs
+    hist: np.ndarray      # (m+1,) residual estimates, NaN-padded
+    done: bool            # convergence/breakdown flag
+
+
+def _safe_bnorm(b: torch.Tensor):
+    b_norm = float(_vnorm(b))
+    return _np_dtype(b.dtype)(1.0 if b_norm == 0 else b_norm)
+
+
+def _arnoldi_init(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
+                  tol: float, m: int, use_z: bool,
+                  safe_bnorm) -> ArnoldiState:
+    """Fresh Arnoldi state of an m-iteration cycle from the residual at x0."""
+    N = b.numel()
+    npdt = _np_dtype(b.dtype)
+    r0 = b - matvec(x0)
+    beta = npdt(float(_vnorm(r0)))
+    V = torch.zeros((m + 1, N), dtype=b.dtype, device=b.device)
+    Z = torch.zeros((m if use_z else 0, N), dtype=b.dtype, device=b.device)
+    V[0] = (r0 / float(beta) if beta > 0 else r0).reshape(-1)
+    g = np.zeros(m + 1, npdt)
+    g[0] = beta
+    hist = np.full(m + 1, np.nan, npdt)
+    hist[0] = beta
+    return ArnoldiState(0, V, Z, np.zeros((m + 1, m), npdt), np.zeros(m, npdt),
+                        np.zeros(m, npdt), g, hist,
+                        bool(beta / safe_bnorm < tol))
+
+
+def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
+                  shape, tol: float, use_z: bool, orthog: str, safe_bnorm,
+                  aug: torch.Tensor | None = None) -> None:
+    """One FGMRES iteration on `state`, in place.
 
     `aug`: optional (k, *S) augmentation directions consumed as the LAST k
     flexible directions of the cycle (z_j = aug[j - (m-k)] for j >= m-k
@@ -78,112 +125,146 @@ def _cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
     recurrence never requires z_j = M(v_j), so the minimization runs over
     K_{m-k} + span{aug}. They must come last: the Krylov chain grows from
     the previous v_j, so aug-first builds it on A*aug instead of r0."""
-    if orthog not in ("cgs2", "cgs1"):
-        raise ValueError(f"unknown orthog {orthog!r}")
-    S = b.shape
-    N = b.numel()
-    npdt = _np_dtype(b.dtype)
-    b_norm = float(_vnorm(b))
-    safe_bnorm = npdt(1.0 if b_norm == 0 else b_norm)
-
-    r0 = b - matvec(x0)
-    beta = npdt(float(_vnorm(r0)))
-    V = torch.zeros((m + 1, N), dtype=b.dtype, device=b.device)
-    Z = torch.zeros((m if use_z else 0, N), dtype=b.dtype, device=b.device)
-    V[0] = (r0 / float(beta) if beta > 0 else r0).reshape(-1)
-    H = np.zeros((m + 1, m), npdt)      # the rotated Hessenberg (R factor)
-    cs = np.zeros(m, npdt)
-    sn = np.zeros(m, npdt)
-    g = np.zeros(m + 1, npdt)
-    g[0] = beta
-    hist = np.full(m + 1, np.nan, npdt)
-    hist[0] = beta
-    done = bool(beta / safe_bnorm < tol)
+    j, V, H, cs, sn, g = state.j, state.V, state.H, state.cs, state.sn, \
+        state.g
+    m = H.shape[1]
+    npdt = H.dtype.type
     k_aug = 0 if aug is None else aug.shape[0]
+    v = V[j].reshape(shape)
+    if k_aug and j >= m - k_aug:
+        z = aug[j - (m - k_aug)].to(V.dtype)
+    else:
+        z = M(v)
+    w = matvec(z).reshape(-1)
+    if use_z:
+        state.Z[j] = z.reshape(-1)
 
-    j = 0
-    while not done and j < m:
-        v = V[j].reshape(S)
-        if k_aug and j >= m - k_aug:
-            z = aug[j - (m - k_aug)].to(b.dtype)
-        else:
-            z = M(v)
-        w = matvec(z).reshape(-1)
-        if use_z:
-            Z[j] = z.reshape(-1)
+    Vj = V[:j + 1]
+    if orthog == "cgs2":
+        wnorm_pre = _vnorm(w)
+        h1 = Vj @ w
+        w = w - h1 @ Vj
+        h2 = Vj @ w
+        w = w - h2 @ Vj
+        hw = torch.cat([h1 + h2, _vnorm(w)[None], wnorm_pre[None]])
+        hv = _host(hw, npdt)
+        h, wnorm, wnorm_pre = hv[:j + 1], hv[j + 1], hv[j + 2]
+    else:
+        # CGS1: one fused reduction [V; w]^T w gives the projections
+        # and ||w||^2; the new norm comes from the Pythagorean identity,
+        # with a second pass when the projection removed more than
+        # 1/sqrt(2) of w (DGKS)
+        def cgs_pass(w):
+            dots = torch.cat([Vj, w[None]]) @ w
+            hv = _host(dots, npdt)
+            hp, ww = hv[:-1], hv[-1]
+            w = w - dots[:-1] @ Vj
+            return hp, ww, ww - np.sum(hp * hp), w
 
-        Vj = V[:j + 1]
-        if orthog == "cgs2":
-            wnorm_pre = _vnorm(w)
-            h1 = Vj @ w
-            w = w - h1 @ Vj
-            h2 = Vj @ w
-            w = w - h2 @ Vj
-            hw = torch.cat([h1 + h2, _vnorm(w)[None], wnorm_pre[None]])
-            hv = _host(hw, npdt)
-            h, wnorm, wnorm_pre = hv[:j + 1], hv[j + 1], hv[j + 2]
-        else:
-            # CGS1: one fused reduction [V; w]^T w gives the projections
-            # and ||w||^2; the new norm comes from the Pythagorean identity,
-            # with a second pass when the projection removed more than
-            # 1/sqrt(2) of w (DGKS)
-            def cgs_pass(w):
-                dots = torch.cat([Vj, w[None]]) @ w
-                hv = _host(dots, npdt)
-                hp, ww = hv[:-1], hv[-1]
-                w = w - dots[:-1] @ Vj
-                return hp, ww, ww - np.sum(hp * hp), w
+        h, ww, est2, w = cgs_pass(w)
+        wnorm_pre = np.sqrt(max(ww, npdt(0)))
+        if est2 < 0.5 * ww:
+            h2, _, est2, w = cgs_pass(w)
+            h = h + h2
+        wnorm = np.sqrt(max(est2, npdt(0)))
 
-            h, ww, est2, w = cgs_pass(w)
-            wnorm_pre = np.sqrt(max(ww, npdt(0)))
-            if est2 < 0.5 * ww:
-                h2, _, est2, w = cgs_pass(w)
-                h = h + h2
-            wnorm = np.sqrt(max(est2, npdt(0)))
+    # happy breakdown: A z landed inside the current Krylov space; the
+    # column ends here and the solve stops after this update
+    breakdown = bool(wnorm <= 1e-12 * wnorm_pre)
+    col = np.zeros(m + 1, npdt)
+    col[:j + 1] = h
+    col[j + 1] = 0 if breakdown else wnorm
+    if not breakdown:
+        V[j + 1] = w / float(wnorm) if wnorm > 0 else w
 
-        # happy breakdown: A z landed inside the current Krylov space; the
-        # column ends here and the solve stops after this update
-        breakdown = bool(wnorm <= 1e-12 * wnorm_pre)
-        col = np.zeros(m + 1, npdt)
-        col[:j + 1] = h
-        col[j + 1] = 0 if breakdown else wnorm
-        if not breakdown:
-            V[j + 1] = w / float(wnorm) if wnorm > 0 else w
+    for i in range(j):
+        hi = cs[i] * col[i] + sn[i] * col[i + 1]
+        hip = -sn[i] * col[i] + cs[i] * col[i + 1]
+        col[i], col[i + 1] = hi, hip
 
-        for i in range(j):
-            hi = cs[i] * col[i] + sn[i] * col[i + 1]
-            hip = -sn[i] * col[i] + cs[i] * col[i + 1]
-            col[i], col[i + 1] = hi, hip
+    rho = np.sqrt(col[j] ** 2 + col[j + 1] ** 2)
+    c_new = npdt(1) if rho == 0 else col[j] / rho
+    s_new = npdt(0) if rho == 0 else col[j + 1] / rho
+    cs[j], sn[j] = c_new, s_new
+    col[j] = c_new * col[j] + s_new * col[j + 1]
+    col[j + 1] = 0
+    H[:, j] = col
 
-        rho = np.sqrt(col[j] ** 2 + col[j + 1] ** 2)
-        c_new = npdt(1) if rho == 0 else col[j] / rho
-        s_new = npdt(0) if rho == 0 else col[j + 1] / rho
-        cs[j], sn[j] = c_new, s_new
-        col[j] = c_new * col[j] + s_new * col[j + 1]
-        col[j + 1] = 0
-        H[:, j] = col
+    g_jp1 = -s_new * g[j]
+    g[j] = c_new * g[j]
+    g[j + 1] = g_jp1
+    res = abs(g_jp1)
+    state.hist[j + 1] = res
+    state.j = j + 1
+    state.done = bool(res / safe_bnorm < tol) or breakdown
 
-        g_jp1 = -s_new * g[j]
-        g[j] = c_new * g[j]
-        g[j + 1] = g_jp1
-        res = abs(g_jp1)
-        hist[j + 1] = res
-        j += 1
-        done = bool(res / safe_bnorm < tol) or breakdown
 
+def _arnoldi_solution(state: ArnoldiState, x0: torch.Tensor, M: Callable,
+                      use_z: bool, safe_bnorm) -> KrylovResult:
+    """Assemble x from the (possibly mid-solve) Arnoldi state."""
+    j, H, g = state.j, state.H, state.g
+    m = H.shape[1]
     x = x0
     if j > 0:
-        y = np.zeros(j, npdt)
+        y = np.zeros(j, H.dtype)
         for i in range(j - 1, -1, -1):
             y[i] = (g[i] - H[i, i + 1:j] @ y[i + 1:]) / H[i, i]
-        yt = torch.as_tensor(y, dtype=b.dtype, device=b.device)
+        yt = torch.as_tensor(y, dtype=x0.dtype, device=x0.device)
         if use_z:
-            dx = yt @ Z[:j]
+            dx = yt @ state.Z[:j]
         else:
-            dx = M((yt @ V[:j]).reshape(S)).reshape(-1)
-        x = x0 + dx.reshape(S)
-    res_final = abs(g[min(j, m)]) if j > 0 else hist[0]
-    return KrylovResult(x, j, float(res_final / safe_bnorm), hist, done)
+            dx = M((yt @ state.V[:j]).reshape(x0.shape)).reshape(-1)
+        x = x0 + dx.reshape(x0.shape)
+    res_final = abs(g[min(j, m)]) if j > 0 else state.hist[0]
+    return KrylovResult(x, j, float(res_final / safe_bnorm), state.hist,
+                        state.done)
+
+
+def _cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
+           m: int, M: Callable, use_z: bool, orthog: str = "cgs2",
+           aug: torch.Tensor | None = None) -> KrylovResult:
+    """One (F)GMRES cycle of at most m iterations (`aug`: see
+    `_arnoldi_step`)."""
+    if orthog not in ("cgs2", "cgs1"):
+        raise ValueError(f"unknown orthog {orthog!r}")
+    safe_bnorm = _safe_bnorm(b)
+    state = _arnoldi_init(matvec, b, x0, tol, m, use_z, safe_bnorm)
+    while not state.done and state.j < m:
+        _arnoldi_step(state, matvec, M, b.shape, tol, use_z, orthog,
+                      safe_bnorm, aug)
+    return _arnoldi_solution(state, x0, M, use_z, safe_bnorm)
+
+
+def fgmres_resumable(matvec: Callable, b: torch.Tensor,
+                     x0: torch.Tensor | None = None, tol: float = 1e-8,
+                     maxiter: int = 100, M: Callable | None = None,
+                     orthog: str = "cgs2", state: ArnoldiState | None = None,
+                     max_steps: int | None = None
+                     ) -> tuple[KrylovResult, ArnoldiState]:
+    """Flexible GMRES that can stop mid-solve and resume exactly.
+
+    Returns (result, state). Run with `max_steps=k` to advance at most k
+    iterations; resume by passing the state back (with the same
+    b/x0/maxiter/M). The steps are those of one uninterrupted `fgmres`
+    cycle, so the iterates and history match it. The state is advanced in
+    place (the JAX package returns a new one)."""
+    if orthog not in ("cgs2", "cgs1"):
+        raise ValueError(f"unknown orthog {orthog!r}")
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    M = _identity if M is None else M
+    safe_bnorm = _safe_bnorm(b)
+    if state is None:
+        state = _arnoldi_init(matvec, b, x0, tol, maxiter, True, safe_bnorm)
+    elif state.H.shape[1] != maxiter:
+        raise ValueError(f"state is of a {state.H.shape[1]}-iteration "
+                         f"cycle, maxiter is {maxiter}")
+    j_stop = maxiter if max_steps is None else min(state.j + max_steps,
+                                                   maxiter)
+    while not state.done and state.j < j_stop:
+        _arnoldi_step(state, matvec, M, b.shape, tol, True, orthog,
+                      safe_bnorm)
+    return _arnoldi_solution(state, x0, M, True, safe_bnorm), state
 
 
 def fgmres(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,

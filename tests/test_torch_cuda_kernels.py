@@ -1,5 +1,6 @@
-"""Kernels K1/K2 and K5-K8 on the card against their plain PyTorch
-versions, on awkward shapes, and the solves of the slices on the card
+"""Kernels K1-K4 and K5-K8 on the card against their plain PyTorch
+versions (K3 and K4 also against K2), on awkward shapes, and the solves of
+the slices on the card
 against the same solves on the CPU. Every test here needs an NVIDIA GPU and
 skips without one. The file imports no JAX, so it
 also runs where JAX is not installed:
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from mpbp_tpu_torch.drivers import solve_multiphase
+from mpbp_tpu_torch.models.fused import make_fused_apply_kernel
 from mpbp_tpu_torch.models.multiphase import operator_from_numpy
 from mpbp_tpu_torch.ops import cuda_dia, cuda_ell, cuda_stencil
 from mpbp_tpu_torch.ops.dia import DIAMatrix
@@ -65,7 +67,8 @@ def test_hybrid_solve_on_card_matches_cpu(cuda_device):
               tol=1e-8, maxiter=100, inner_tol=1e-4, inner_iters=40)
     before = dict(cuda_stencil.LAUNCHES)
     gpu = solve_multiphase(**kw, device=cuda_device)
-    assert all(cuda_stencil.LAUNCHES[k] > before[k] for k in before)
+    assert all(cuda_stencil.LAUNCHES[k] > before[k]
+               for k in ("f_apply", "a_apply"))
     cpu = solve_multiphase(**kw, device="cpu")
     msg = f"card {gpu.iters} iters, cpu {cpu.iters}"
     assert gpu.converged and abs(gpu.iters - cpu.iters) <= 2, msg
@@ -165,3 +168,87 @@ def test_ilut_neumann_solve_on_card_matches_cpu(cuda_device):
     assert gpu.converged and abs(gpu.iters - cpu.iters) <= 2
     assert gpu.error_norms["l2"] == pytest.approx(cpu.error_norms["l2"],
                                                   rel=1e-6)
+
+
+def _random_operator(n, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    cell, xpt, ypt = (rng.uniform(0.1, 0.9, (n, n)) for _ in range(3))
+    op = operator_from_numpy(cell, xpt, ypt,
+                             dict(c=1.0, d=-1.0, xi=1.0, eta_n=100.0,
+                                  eta_s=1.0), device=device, dtype=dtype)
+    x = torch.as_tensor(rng.normal(size=(5, n, n)), dtype=dtype,
+                        device=device)
+    return op, x
+
+
+@pytest.mark.parametrize("dtype,bound", BOUNDS)
+def test_k3_extend_and_k4_match_plain_and_k2(cuda_device, dtype, bound):
+    """At n=50 (no multiple of the 32x8 block or of any K4 tile: masked
+    edges, partial tiles, a grid of fewer tiles than CTAs): K3 through the
+    row extension and K4 at several tiles against the plain apply and
+    against K2 on the same state."""
+    op, x = _random_operator(50, dtype, cuda_device)
+    args = (op.phase_n.cell, op.phase_n.xface_pt, op.phase_n.yface_pt, x,
+            op.params, op.grid.dx, op.grid.dy)
+    want = cuda_stencil.a_apply_reference(*args)
+    k2 = cuda_stencil.a_apply(*args)
+    before = dict(cuda_stencil.LAUNCHES)
+    got = make_fused_apply_kernel(op, "extend")(x)
+    assert cuda_stencil.LAUNCHES["a_apply_band"] == \
+        before["a_apply_band"] + 1
+    _assert_close(got, want, bound)
+    _assert_close(got, k2, bound)
+    # (2, 256): a tile wider than the grid, so its footprint wraps past n
+    for tile in (None, (1, 32), (4, 32), (16, 64), (8, 128), (40, 32),
+                 (2, 256)):
+        got = cuda_stencil.a_apply_staged(*args, tile=tile)
+        _assert_close(got, want, bound)
+        _assert_close(got, k2, bound)
+    assert cuda_stencil.LAUNCHES["a_apply_staged"] == \
+        before["a_apply_staged"] + 7
+
+
+@pytest.mark.parametrize("h", [1, 8])
+@pytest.mark.parametrize("dtype,bound", BOUNDS)
+def test_k3_on_a_band_matches_plain_and_k2(cuda_device, dtype, bound, h):
+    """A band of n_loc=24 rows of a random n=50 grid, its h halo rows the
+    grid's neighbour rows (not periodic within the band): K3 against its
+    plain version and against those rows of K2's full apply."""
+    n, n_loc, r0 = 50, 24, 13
+    op, x = _random_operator(n, dtype, cuda_device, seed=1)
+    tn, wx, wy = op.phase_n.cell, op.phase_n.xface_pt, op.phase_n.yface_pt
+    band = (tn[r0 - h:r0 + n_loc + h].contiguous(),
+            wx[r0:r0 + n_loc].contiguous(), wy[r0:r0 + n_loc].contiguous(),
+            x[:, r0 - h:r0 + n_loc + h].contiguous(), op.params, op.grid.dx,
+            op.grid.dy, h)
+    got = cuda_stencil.a_apply_band(*band)
+    _assert_close(got, cuda_stencil.a_apply_band_reference(*band), bound)
+    k2 = cuda_stencil.a_apply(tn, wx, wy, x, op.params, op.grid.dx,
+                              op.grid.dy)
+    _assert_close(got, k2[:, r0:r0 + n_loc].contiguous(), bound)
+
+
+def test_k4_tile_out_of_shared_memory_raises(cuda_device):
+    op, x = _random_operator(16, torch.float64, cuda_device)
+    args = (op.phase_n.cell, op.phase_n.xface_pt, op.phase_n.yface_pt, x,
+            op.params, op.grid.dx, op.grid.dy)
+    with pytest.raises(ValueError):
+        cuda_stencil.a_apply_staged(*args, tile=(64, 256))
+
+
+@pytest.mark.parametrize("halo", ["inkernel", "extend", "pipelined"])
+def test_ir_solve_on_card_matches_cpu(cuda_device, halo):
+    """The ir time-to-solve benchmark at n=16 on the card with each f32
+    matvec kernel against the same benchmark on the CPU: converged to
+    1e-8 and the same L2 to 1e-4."""
+    from mpbp_tpu_torch import bench_solve
+
+    kernel = {"inkernel": "a_apply", "extend": "a_apply_band",
+              "pipelined": "a_apply_staged"}[halo]
+    argv = ["--n", "16", "--halo", halo]
+    before = cuda_stencil.LAUNCHES[kernel]
+    gpu = bench_solve.main(argv + ["--device", str(cuda_device)])
+    assert cuda_stencil.LAUNCHES[kernel] > before
+    cpu = bench_solve.main(argv + ["--device", "cpu"])
+    assert gpu["converged"] and gpu["true_relres"] < 1e-8
+    assert gpu["error_l2"] == pytest.approx(cpu["error_l2"], rel=1e-4)

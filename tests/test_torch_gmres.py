@@ -128,3 +128,90 @@ def test_unpreconditioned_multiphase_stagnates_like_jax():
     assert got.iters == want.iters == 100
     assert got.relres == pytest.approx(want.relres, rel=1e-3)
     assert round(got.relres, 7) == 1.57e-5
+
+
+@pytest.mark.parametrize("orthog", ["cgs2", "cgs1"])
+def test_fgmres_resumable_stepped_equals_uninterrupted(orthog):
+    """Stepping fgmres_resumable one iteration at a time walks the same
+    recurrence as one uninterrupted fgmres: iterates, counts and history
+    to 1e-12."""
+    A, b = nonsymmetric(5)
+    At, bt = torch.as_tensor(A), torch.as_tensor(b)
+    Mt = torch.as_tensor(1.0 / np.diag(A))
+    kw = dict(tol=1e-10, maxiter=N, M=lambda v: Mt * v, orthog=orthog)
+    full = krylov.fgmres(lambda v: At @ v, bt, **kw)
+    state, steps = None, 0
+    while True:
+        part, state = krylov.fgmres_resumable(lambda v: At @ v, bt,
+                                              state=state, max_steps=1, **kw)
+        steps += 1
+        assert part.iters == state.j == min(steps, full.iters)
+        if part.converged or part.iters >= N:
+            break
+    assert part.converged and part.iters == full.iters > 5
+    np.testing.assert_allclose(part.x.numpy(), full.x.numpy(), rtol=1e-12,
+                               atol=1e-12 * float(full.x.abs().max()))
+    ok = ~np.isnan(full.res_history)
+    np.testing.assert_array_equal(np.isnan(part.res_history), ~ok)
+    np.testing.assert_allclose(part.res_history[ok], full.res_history[ok],
+                               rtol=1e-12)
+    assert part.relres == pytest.approx(full.relres, rel=1e-12)
+
+
+def test_fgmres_resumable_matches_jax_and_its_partial_iterate_is_valid():
+    """A 7-step partial solve equals the JAX package's, its iterate's true
+    residual matches the recurrence estimate, and resuming finishes the
+    solve as the JAX package's resume does."""
+    A, b = nonsymmetric(6)
+    At, Aj = torch.as_tensor(A), jnp.asarray(A)
+    part, state = krylov.fgmres_resumable(lambda v: At @ v,
+                                          torch.as_tensor(b), tol=1e-10,
+                                          maxiter=N, max_steps=7)
+    jpart, jstate = jax_krylov.fgmres_resumable(lambda v: Aj @ v,
+                                                jnp.asarray(b), tol=1e-10,
+                                                maxiter=N, max_steps=7)
+    assert part.iters == int(jpart.iters) == 7 and not part.converged
+    np.testing.assert_allclose(part.x.numpy(), np.asarray(jpart.x),
+                               rtol=RTOL, atol=RTOL)
+    true_rel = float(torch.linalg.norm(torch.as_tensor(b) - At @ part.x)
+                     / np.linalg.norm(b))
+    assert abs(true_rel - part.relres) < 1e-8 * (1 + true_rel)
+    res, _ = krylov.fgmres_resumable(lambda v: At @ v, torch.as_tensor(b),
+                                     tol=1e-10, maxiter=N, state=state)
+    jres, _ = jax_krylov.fgmres_resumable(lambda v: Aj @ v, jnp.asarray(b),
+                                          tol=1e-10, maxiter=N, state=jstate)
+    assert_same_solve(res, jres)
+    with pytest.raises(ValueError):              # a state of another cycle
+        krylov.fgmres_resumable(lambda v: At @ v, torch.as_tensor(b),
+                                maxiter=N - 1, state=state)
+
+
+# (pc, extra settings, iterations over which the two packages' recurrence
+# histories agree): lsc_ilut's exact level solves keep them together to the
+# end; lsc_mg_full's inner GMRES stops at its own tolerance, so the plain
+# (unmonitored) histories of the two packages already part after 8
+# iterations (1.8e-6 at the 9th, 8e-2 at the 12th; ROADMAP.md queue 3)
+MONITORED = [("lsc_ilut", {}, None),
+             ("lsc_mg_full", dict(inner_tol=1e-4, inner_iters=40), 8)]
+
+
+@pytest.mark.parametrize("pc,extra,agree", MONITORED)
+def test_true_res_monitor_matches_jax(pc, extra, agree):
+    """The per-iteration true-residual monitor at n=16, full precision:
+    one entry per iteration, as many as the JAX package's, equal to its
+    values to 1e-6 relative where the two recurrences agree, and tracking
+    the port's own recurrence history."""
+    kw = dict(n=16, eta_n=100.0, pc=pc, tol=1e-8, maxiter=100,
+              true_res_monitor=True, **extra)
+    got = solve_multiphase(**kw, device="cpu")
+    want = jax_solve(**kw)
+    hist = np.asarray(got.params["true_res_history"])
+    jhist = np.asarray(want.params["true_res_history"])
+    assert got.converged and got.iters == want.iters == len(hist)
+    assert len(hist) == len(jhist)
+    np.testing.assert_allclose(hist[:agree], jhist[:agree], rtol=1e-6)
+    rec = got.res_history[1:len(hist) + 1] / got.res_history[0]
+    np.testing.assert_allclose(hist, rec, rtol=1e-6, atol=1e-10)
+    assert hist[-1] < kw["tol"]
+    with pytest.raises(ValueError, match="restart"):
+        solve_multiphase(**kw, restart=10, device="cpu")

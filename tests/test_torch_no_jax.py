@@ -1,5 +1,6 @@
 """The port runs without JAX: importing its entry points (the drivers, the
-CLI, every ops module and `chip_smoke.py`) in a fresh interpreter where
+CLI, the two benchmarks, every ops module, the mixed-precision solver, the
+metrics and `chip_smoke.py`) in a fresh interpreter where
 `import jax` fails loads no JAX module. Of the JAX package only
 `mpbp_tpu` and `mpbp_tpu.native` (ctypes and numpy) may load: the port
 reuses the native ILUT/ILU(0) and level-schedule library."""
@@ -17,11 +18,15 @@ import json, sys
 sys.modules["jax"] = None      # any `import jax` now raises ImportError
 sys.modules["jaxlib"] = None
 import chip_smoke
+import mpbp_tpu_torch.bench
+import mpbp_tpu_torch.bench_solve
 import mpbp_tpu_torch.cli
 import mpbp_tpu_torch.drivers
 from mpbp_tpu_torch.ops import (cuda_dia, cuda_ell, cuda_stencil, dia,
                                 dispatch, ilu, sparse, spgemm, stencil,
                                 trisolve)
+from mpbp_tpu_torch.solvers import mixed
+from mpbp_tpu_torch.utils import metrics
 print(json.dumps({
     "jax": sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib")

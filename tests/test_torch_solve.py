@@ -3,6 +3,8 @@ the lsc_mg_full slice in full f64 and hybrid precision, the lsc_krylov
 kind, and the ILU and block kinds (lsc_ilut with level and Neumann
 triangular solves, lsc_ilu0, lsc_mg, block_diag, block_tri)."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -131,11 +133,16 @@ def test_unported_kinds_name_their_roadmap_item(kind, entry):
 
 
 def test_unported_modes_raise_and_bad_names_are_rejected():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        solve_multiphase(n=8, pc="lsc_mg_full", precision="ir", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for argv, item in ((["eigs", "--n", "8"], "item 11"),
+                       (["export", "--n", "8"], "item 11"),
+                       (["solve", "--sharded", "--n", "8", "--device", "cpu"],
+                        "item 13")):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md queue 1 {item}"):
+            cli.main(argv)
+    with pytest.raises(ValueError, match="restart"):
         solve_multiphase(n=8, pc="lsc_mg_full", true_res_monitor=True,
-                         device="cpu")
+                         restart=5, device="cpu")
     with pytest.raises(ValueError):
         solve_multiphase(n=8, pc="lsc_mg_full", precision="bf16",
                          device="cpu")
@@ -156,6 +163,24 @@ def test_cli_solve_and_apply(capsys):
     assert cli.main(["apply", "--n", "8", "--eta-n", "1",
                      "--device", "cpu"]) == 0
     assert "L2=4.736938e+00" in capsys.readouterr().out
+
+
+def test_cli_ir_monitor_and_metrics_json(capsys, tmp_path):
+    path = tmp_path / "metrics.json"
+    assert cli.main(["solve", "--n", "16", "--device", "cpu",
+                     "--pc", "lsc_mg_full", "--precision", "ir",
+                     "--maxiter", "100", "--inner-iters", "40",
+                     "--metrics-json", str(path)]) == 0
+    out = capsys.readouterr().out
+    assert "precision=ir" in out and "converged=True" in out
+    assert "L2=2.2709" in out
+    rec = json.loads(path.read_text())
+    assert rec["converged"] and rec["n"] == 16 and rec["iters"] > 0
+    assert rec["nnz"] == 11 * 5 * 16 * 16 and rec["res_history"][0] == 1.0
+    assert cli.main(["solve", "--n", "16", "--device", "cpu",
+                     "--pc", "lsc_ilut", "--true-res-monitor"]) == 0
+    out = capsys.readouterr().out
+    assert "iters=45" in out and "true residual history:" in out
 
 
 def test_vector_layout_helpers_match_jax():
