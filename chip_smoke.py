@@ -2,16 +2,24 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases, one status line each; any failure raises and exits non-zero:
+Phases, one status line each; any failure raises and exits non-zero.
+Every kernel row gives its time, its plain version's, its bound (bytes
+over the H100's published 3.35 TB/s or operations over its peak rate,
+the larger) and, where one PyTorch call computes the same function
+(cuSPARSE through `torch.sparse_csr_tensor`), that call's time: the
+yardstick only, the port never calls it.
   1. device  - a CUDA device is required; prints its name and
                `nvidia-smi --query-gpu=name,power.limit`.
   2. build   - nvcc builds csrc/fused_stencil.cu and csrc/sparse_spmv.cu
-               for sm_90a, one nvcc per source, started together.
-  3. kernels - K1 (f_apply) and K2 (a_apply) against their plain PyTorch
-               versions at n=512 and n=2048, f32 and f64, on random theta
-               in [0.1, 0.9] and a random state (numpy seed 0); kernel and
-               plain times (CUDA events, warm, median of 20) and effective
-               GB/s by plane count.
+               for sm_90a, one nvcc per source, while g++ builds the host
+               setup library (native/csparse.cpp), all started together.
+  3. kernels - K1 (f_apply) at n=8, 50, 512, 1000, 2048 and K2 (a_apply)
+               at n=512, 2048 against their plain PyTorch versions, f32
+               and f64, on random theta in [0.1, 0.9] and a random state
+               (numpy seed 0); CUDA events, warm, median of 20 (operands
+               that fit in L2 once more after an L2 flush); at n=512 the
+               operator's F or A as CSR @ x; K1 against K2's velocity rows
+               at p = 0 (max difference, bit-equal or not).
   4. mms     - A-apply MMS L2 error at n=32 through K2 in f64.
   5. slice   - the 512^2, eta_n=100 lsc_mg_full hybrid solve, cold then
                warm, with the kernel launch counts of the warm run.
@@ -20,17 +28,20 @@ Phases, one status line each; any failure raises and exits non-zero:
   7. profile - two outer iterations of the warm solve under torch.profiler:
                device busy time and idle share, K1/K2 device totals, the
                busiest kernels.
-  8. sparse_kernels - K5/K6 (dia_spmv), K7 (ell_spmv, plain and with the
-               Jacobi epilogue) and K8 (ell_spmm) against their plain
-               versions, f32 and f64, at benchmarks/kernels_tpu.py's
-               sizes; times, GB/s and whether the operand fits in L2;
-               then the BandedELL SpMM API run as a path, K8 compared on
-               that BandedELL's own arrays.
+  8. sparse_kernels - K5/K6 (dia_spmv) at benchmarks/kernels_tpu.py's
+               sizes; K7 (ell_spmv on compressed rows, plain, with the
+               Jacobi epilogue, and a solve's 24 sweeps from one host
+               call) on GtG's n=256 ILUT U factor; K8 (ell_spmm)
+               on BandedELL of GtG, with torch.sparse.mm beside it; then
+               the BandedELL SpMM API run as a path.
   9. ilu_slice - path (a): the n=64 lsc_ilut solve with Neumann triangular
                solves (every sweep one K7 launch), cold then warm; then
                ilu_layers: K7 against its plain version on the four
-               triangles that path sweeps, and a layer split with
-               synchronized timers.
+               triangles that path sweeps (one product, one sweep, and the
+               24 sweeps of `ell_sweeps`), with its lane group, and a
+               layer split with synchronized timers; then launch_path: the
+               host's cost of a launch, and of a Neumann solve's sweeps in
+               one host call against one call per sweep.
  10. ilu_level - the CLI default: n=16 lsc_ilut with the exact level apply
                (plain PyTorch), with the launches of one outer iteration.
  11. dia_lsc - path (b): LSC built from DIA matrices alone at n=128, FGMRES
@@ -54,22 +65,26 @@ Phases, one status line each; any failure raises and exits non-zero:
                1e-4), cold and warm with --halo inkernel, then warm with
                pipelined and extend on the same setup, with the K1-K4
                launches of each run; then solve_multiphase(precision="ir")
-               at n=64 and the true-residual monitor at n=16.
+               at n=64, once more with K1's function computed by K2 (the
+               arithmetic of the K1 before the redesign), and the
+               true-residual monitor at n=16.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from mpbp_tpu_torch import bench, bench_solve
+from mpbp_tpu_torch import bench, bench_solve, drivers, native
 from mpbp_tpu_torch.drivers import (a_matvec, lsc_inners, pack_fields,
                                     solve_multiphase)
 from mpbp_tpu_torch.models import mms
@@ -100,8 +115,21 @@ REPLACES = {"f_apply": "mpbp_tpu/ops/pallas_stencil.py:518",
             "ell_spmv": "mpbp_tpu/ops/pallas_ell.py:173",
             "ell_spmm": "mpbp_tpu/ops/pallas_ell.py:241"}
 NF = {"f_apply": 4, "a_apply": 5}
+# kernels phase: K1 at sizes that are no multiple of anything (8, 50, 1000)
+# and at the main path's 512 and 2048; K2 at 512 and 2048; the library
+# call (a cuSPARSE CSR of the operator) at n=512
+K1_N, K2_N, LIBRARY_N = (8, 50, 512, 1000, 2048), (512, 2048), 512
 # error bounds relative to max|plain|: FMA contraction and operation order
 BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}
+# the least time the card could take (bound_ms): bytes over the H100 SXM's
+# published 3.35 TB/s, or operations over its published non-tensor-core
+# rate for the type (NVIDIA's data sheet: 67 TFLOP/s f32, 34 TFLOP/s f64),
+# whichever is larger
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+# operations per grid point of K1 (NF=4) and K2-K4 (NF=5), counted from
+# point_apply's expressions in csrc/fused_stencil.cu (an FMA counts 2)
+FLOP_PER_POINT = {4: 190, 5: 250}
 SLICE = dict(n=512, c=1, d=-1, xi=1, eta_n=100, eta_s=1, pc="lsc_mg_full",
              precision="hybrid", tol=1e-10, maxiter=40, inner_tol=1e-4,
              inner_iters=40)
@@ -153,17 +181,21 @@ def say(phase: str, **kv) -> None:
           flush=True)
 
 
-def median_ms(fn, reps: int = 20) -> float:
+def median_ms(fn, reps: int = 20, flush: bool = False) -> float:
     """Median device time of one call, by CUDA events, after a warm-up.
     Each call is enqueued behind a ~5 ms device sleep, so the events
     bracket the call's kernels back to back and not the host's launch gaps
-    (at n=512 a launch takes longer on the host than on the device)."""
+    (at n=512 a launch takes longer on the host than on the device). With
+    `flush`, a read of four L2's worth of bytes precedes each sleep, so the
+    call finds its operand in HBM and not in L2."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if flush:
+            _l2_flush()
         torch.cuda._sleep(10_000_000)
         start.record()
         fn()
@@ -171,6 +203,69 @@ def median_ms(fn, reps: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+_FLUSH: dict = {}
+
+
+def _l2_flush() -> None:
+    """Read four L2's worth of bytes on the current device: what the next
+    kernel reads then comes from HBM."""
+    dev = torch.cuda.current_device()
+    if dev not in _FLUSH:
+        l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+        _FLUSH[dev] = torch.ones(l2, dtype=torch.float32, device=dev)
+    _FLUSH[dev].sum()
+
+
+def bound(nbytes: float, flops: float, dtype) -> dict:
+    """bound_ms and bound_by of a call that must move `nbytes` and do
+    `flops` operations in `dtype`."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def torch_csr(rowptr, cols, vals, shape) -> torch.Tensor:
+    """A cuSPARSE operand (`torch.sparse_csr_tensor`, int32 indices): the
+    library yardstick of the sparse and stencil kernels. The port never
+    calls it."""
+    return torch.sparse_csr_tensor(rowptr.to(torch.int32),
+                                   cols.to(torch.int32), vals, shape,
+                                   check_invariants=False)
+
+
+def csr_of(csr) -> torch.Tensor:
+    """The cuSPARSE operand of an `ops/sparse.CSRMatrix`."""
+    return torch_csr(torch.as_tensor(csr.indptr, device=csr.vals.device),
+                     csr.indices, csr.vals, csr.shape)
+
+
+def csr_of_dia(A: DIAMatrix) -> torch.Tensor:
+    """The cuSPARSE operand of a DIA matrix: its nonzeros, under the DIA
+    convention (the rows past ncols of a tall matrix are 0)."""
+    nrows, ncols = A.shape
+    m = min(nrows, ncols)
+    dev = A.data.device
+    rows = torch.arange(m, device=dev).repeat(len(A.offsets))
+    cols = (rows + A.kernel_offsets.repeat_interleave(m)) % ncols
+    vals = A.data[:, :m].reshape(-1)
+    keep = vals != 0
+    coo = torch.sparse_coo_tensor(torch.stack((rows[keep], cols[keep])),
+                                  vals[keep], A.shape).coalesce()
+    csr = coo.to_sparse_csr()
+    return torch_csr(csr.crow_indices(), csr.col_indices(), csr.values(),
+                     A.shape)
+
+
+def library(got, call) -> dict:
+    """library_ms of one PyTorch call computing the kernel's function on
+    the same operand, and its max difference from the kernel's output."""
+    out = call()
+    torch.cuda.synchronize()
+    return dict(library_ms=median_ms(call),
+                library_err=float((out.reshape(got.shape) - got).abs().max()))
 
 
 def phase_device() -> tuple[str, str]:
@@ -189,56 +284,80 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
+    """nvcc builds the CUDA sources (one process each) while g++ builds the
+    host setup library, all at once; any failure raises."""
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.load)
+        libs = _build.build_all()
+        host.result()
     for stem in libs:
         _build.load(stem)
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
         nvcc=_build.find_nvcc(),
-        libraries=",".join(p.name for p in libs.values()))
+        libraries=",".join(p.name for p in (*libs.values(),
+                                            native.library_path())))
 
 
 def phase_kernels(dev) -> dict:
+    """K1 (f_apply) at n in K1_N and K2 (a_apply) at n in K2_N against
+    their plain versions, f32 and f64, random theta in [0.1, 0.9] and a
+    random state (numpy seed 0); at n=512 also the library call, the
+    operator's F (or A) as CSR @ x. GB/s and the bound count the planes
+    each kernel must move: 3 theta + NF in, NF out."""
     rng = np.random.default_rng(0)
     params = dict(c=1.0, d=-1.0, xi=1.0, eta_n=100.0, eta_s=1.0)
     results = {}
-    for n in (512, 2048):
+    for n in sorted({*K1_N, *K2_N}):
         cell, xpt, ypt = (rng.uniform(0.1, 0.9, (n, n)) for _ in range(3))
         state = rng.normal(size=(5, n, n))
+        names = [k for k, sizes in (("f_apply", K1_N), ("a_apply", K2_N))
+                 if n in sizes]
+        blocks = {}
+        if n == LIBRARY_N:
+            op64 = operator_from_numpy(cell, xpt, ypt, params, device=dev,
+                                       dtype=torch.float64)
+            blocks = {"f_apply": csr_of(op64.F.to_csr()),
+                      "a_apply": csr_of(op64.A.to_csr())}
+            del op64
         for dtype in (torch.float32, torch.float64):
             op = operator_from_numpy(cell, xpt, ypt, params, device=dev,
                                      dtype=dtype)
             planes = (op.phase_n.cell, op.phase_n.xface_pt,
                       op.phase_n.yface_pt)
             x5 = torch.as_tensor(state, dtype=dtype, device=dev)
-            for name, ref in (("f_apply", cuda_stencil.f_apply_reference),
-                              ("a_apply", cuda_stencil.a_apply_reference)):
+            for name in names:
                 kern = getattr(cuda_stencil, name)
+                ref = getattr(cuda_stencil, f"{name}_reference")
                 x = x5[:NF[name]].contiguous()
                 args = (*planes, x, op.params, op.grid.dx, op.grid.dy)
-                got, want = kern(*args), ref(*args)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                scale = float(want.abs().max())
-                check(bool(torch.isfinite(got).all()),
-                      f"{name} n={n} {dtype}: non-finite output")
-                check(err <= BOUND[dtype] * scale,
-                      f"{name} n={n} {dtype}: max|kernel-plain|={err:.3e} > "
-                      f"{BOUND[dtype]:.0e}*{scale:.3e}")
-                ms = median_ms(lambda: kern(*args))
-                plain_ms = median_ms(lambda: ref(*args))
-                nbytes = (3 + 2 * NF[name]) * n * n * x.element_size()
-                gbs = nbytes / (ms * 1e-3) / 1e9
-                tag = "f32" if dtype == torch.float32 else "f64"
-                results[(name, n, tag)] = dict(err=err, scale=scale, ms=ms,
-                                               plain_ms=plain_ms)
-                say("kernels", kernel=f"{name}_{tag}", n=n,
-                    max_abs_err=f"{err:.3e}", max_abs_ref=f"{scale:.3e}",
-                    ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-                    gb_per_s=f"{gbs:.1f}",
-                    planes=3 + 2 * NF[name])
+                lib = None
+                if name in blocks:
+                    csr, xf = _astype(blocks[name], dtype), x.reshape(-1)
+                    lib = (lambda csr=csr, xf=xf: csr @ xf)
+                r = results[(name, n, _tag(dtype))] = _compare(
+                    name, f"n={n}", dtype, lambda: kern(*args),
+                    lambda: ref(*args),
+                    (3 + 2 * NF[name]) * n * n * x.element_size(), "kernels",
+                    flops=FLOP_PER_POINT[NF[name]] * n * n, lib=lib,
+                    extra=dict(planes=3 + 2 * NF[name]))
+                if name == "f_apply":
+                    # K1 against K2's velocity rows on the state with p = 0
+                    r.update(_versus_k2(
+                        "kernels", f"f_apply_{_tag(dtype)}", f"n={n}, p=0",
+                        kern(*args), k1_by_k2(*args)))
             del op, x5
+        del blocks
     return results
+
+
+def k1_by_k2(tn, wnx, wny, x, params: dict, dx: float,
+             dy: float) -> torch.Tensor:
+    """K1's function computed by K2 on the state with a zero pressure
+    plane: the first four outputs. K2's per-point arithmetic is the
+    template the K1 before the redesign instantiated with 4 planes."""
+    x5 = torch.cat((x, torch.zeros_like(x[:1])))
+    return cuda_stencil.a_apply(tn, wnx, wny, x5, params, dx, dy)[:4]
 
 
 def phase_mms(dev) -> None:
@@ -385,16 +504,23 @@ def phase_profile(dev) -> None:
     say("profile", window="2 outer iterations")
     profile_window(
         "profile", lambda: solve_multiphase(**window, device=dev),
-        {"f32_K1": "fused_stencil_kernel<float, 4>",
-         "f64_K1": "fused_stencil_kernel<double, 4>",
+        {"f32_K1": "f_apply_kernel<float",
+         "f64_K1": "f_apply_kernel<double",
          "f64_K2": "fused_stencil_kernel<double, 5>"}, top=8)
 
 
 def _compare(kernel: str, label: str, dtype, kern, ref, nbytes: int,
-             phase: str = "sparse_kernels") -> dict:
-    """Hold one kernel call against its plain version, then time both. The
-    rate is tagged `resident=L2` when the bytes the kernel moves fit in the
-    card's L2 (repeated calls then read L2, not HBM), else `HBM`."""
+             phase: str = "sparse_kernels", flops: float = 0.0,
+             lib=None, extra: dict | None = None,
+             bound_bytes: int | None = None) -> dict:
+    """Hold one kernel call against its plain version, then time both and,
+    where `lib` is given, the one PyTorch call that computes the same
+    function (library_ms; its output is held to the same bound). The rate
+    is tagged `resident=L2` when the bytes the kernel moves fit in the
+    card's L2 (repeated calls then read L2, not HBM), else `HBM`; an
+    L2-resident call is timed once more after an L2 flush (ms_l2_flushed),
+    the time the HBM bound applies to. bound_ms counts `bound_bytes`
+    (default `nbytes`) and `flops`."""
     got, want = kern(), ref()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -406,13 +532,35 @@ def _compare(kernel: str, label: str, dtype, kern, ref, nbytes: int,
           f"{kernel} {label} {tag}: max|kernel-plain|={err:.3e} > "
           f"{BOUND[dtype]:.0e}*{scale:.3e}")
     ms, plain_ms = median_ms(kern), median_ms(ref)
-    gbs = nbytes / (ms * 1e-3) / 1e9
+    resident = _resident(nbytes, got.device)
+    # an operand that fits in L2 is read from L2 by repeated calls, so the
+    # HBM bound is no floor for `ms`; the flushed time reads it from HBM
+    ms_flushed = median_ms(kern, flush=True) if resident == "L2" else ms
+    lib_res = (library(got, lib) if lib is not None
+               else dict(library_ms=None, library_err=None))
+    res = dict(err=err, scale=scale, ms=ms, plain_ms=plain_ms,
+               ms_l2_flushed=ms_flushed, resident=resident,
+               gbs=nbytes / (ms * 1e-3) / 1e9,
+               **bound(nbytes if bound_bytes is None else bound_bytes, flops,
+                       dtype),
+               **lib_res, **(extra or {}))
+    lib_ms, lib_err = res["library_ms"], res["library_err"]
     say(phase, kernel=f"{kernel}_{tag}", case=repr(label),
         max_abs_err=f"{err:.3e}", max_abs_ref=f"{scale:.3e}",
-        ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", gb_per_s=f"{gbs:.1f}",
-        operand_mb=f"{nbytes / 1e6:.1f}",
-        resident=_resident(nbytes, got.device))
-    return dict(err=err, scale=scale, ms=ms, plain_ms=plain_ms, gbs=gbs)
+        ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+        bound_us=f"{res['bound_ms'] * 1e3:.3f}",
+        of_bound=f"{res['bound_ms'] / ms:.3f}",
+        ms_l2_flushed=f"{ms_flushed:.5f}",
+        of_bound_flushed=f"{res['bound_ms'] / ms_flushed:.3f}",
+        library_ms="null" if lib_ms is None else f"{lib_ms:.5f}",
+        library_err="null" if lib_err is None else f"{lib_err:.3e}",
+        gb_per_s=f"{res['gbs']:.1f}", operand_mb=f"{nbytes / 1e6:.1f}",
+        resident=resident, **{k: v for k, v in (extra or {}).items()})
+    if lib_err is not None:
+        check(lib_err <= 10 * BOUND[dtype] * scale,
+              f"{kernel} {label} {tag}: the library call computes another "
+              f"function (max|library-kernel|={lib_err:.3e})")
+    return res
 
 
 def _resident(nbytes: int, device) -> str:
@@ -425,46 +573,94 @@ def _resident(nbytes: int, device) -> str:
 
 def compare_dia(phase: str, mats: dict, rng) -> dict:
     """K5/K6 against its plain version on each DIA matrix of `mats`
-    ({label: f64 DIAMatrix}), f64 and f32. GB/s counts (K+2)N elements:
-    K min(nrows, ncols) + nrows + ncols, since the kernel reads no data
-    for the rows past ncols of a tall matrix."""
+    ({label: f64 DIAMatrix}), f64 and f32, and the library call: the same
+    matrix as CSR @ x. GB/s counts (K+2)N elements: K min(nrows, ncols) +
+    nrows + ncols, since the kernel reads no data for the rows past ncols
+    of a tall matrix. The bound counts a row by its nonzeros only, one
+    value each and no index (a DIA entry's column is its diagonal's), plus
+    x and y: nnz + nrows + ncols elements, 2 nnz operations."""
     res = {}
     for label, A64 in mats.items():
         nrows, ncols = A64.shape
         x64 = torch.as_tensor(rng.normal(size=ncols), device=A64.data.device)
+        csr64 = csr_of_dia(A64)
+        nnz = int(csr64.values().shape[0])
         for dtype in (torch.float64, torch.float32):
             A = DIAMatrix(A64.shape, A64.offsets, A64.data.to(dtype))
             x = x64.to(dtype)
-            nbytes = (len(A.offsets) * min(nrows, ncols) + nrows + ncols) \
-                * x.element_size()
+            csr = csr64.to(dtype)
+            elt = x.element_size()
             res[(label, dtype)] = _compare(
                 "dia_spmv", f"{label} ({nrows}x{ncols}, K={len(A.offsets)})",
                 dtype, lambda: cuda_dia.dia_spmv(A, x),
-                lambda: cuda_dia.dia_spmv_reference(A, x), nbytes, phase)
+                lambda: cuda_dia.dia_spmv_reference(A, x),
+                (len(A.offsets) * min(nrows, ncols) + nrows + ncols) * elt,
+                phase, flops=2 * nnz, lib=lambda: csr @ x,
+                extra=dict(nnz=nnz), bound_bytes=(nnz + nrows + ncols) * elt)
     return res
 
 
+def _astype(csr: torch.Tensor, dtype) -> torch.Tensor:
+    return torch_csr(csr.crow_indices(), csr.col_indices(),
+                     csr.values().to(dtype), csr.shape)
+
+
+def _tag(dtype) -> str:
+    return "f32" if dtype == torch.float32 else "f64"
+
+
 def compare_sweeps(phase: str, factors: dict, rng) -> dict:
-    """K7 in its Jacobi-epilogue mode, the mode of every Neumann sweep,
-    against its plain version on each triangle of `factors` ({label:
-    NeumannTriSolve}, f64), f64 and f32. GB/s counts W N (elt + 4 B) +
-    4 N elements (x, b, inv_d, y)."""
+    """K7 against its plain version on each triangle of `factors` ({label:
+    NeumannTriSolve}, f64), f64 and f32, each type with its own lane group
+    G: plain (y = S x, with the library call, the triangle as CSR @ x), in
+    its Jacobi-epilogue mode (one Neumann sweep), and the solve's `sweeps`
+    sweeps from one host call (`ell_sweeps`, what the path launches)
+    against the plain sweep repeated from x = inv_d b. GB/s and the bound
+    count the real entries (a value and a 4-byte column each), N+1 row
+    pointers and x, y (and b, inv_d with the epilogue), once a sweep. Each
+    row names G and the longest row."""
     res = {}
     for label, tri in factors.items():
-        W, N = tri.strict.cols.shape
+        rows64 = tri.strict
+        N, nnz, sweeps = rows64.shape[0], rows64.nnz, tri.sweeps
+        lens = rows64.rowptr[1:] - rows64.rowptr[:-1]
         x64, b64 = (torch.as_tensor(rng.normal(size=N),
                                     device=tri.diag.device)
                     for _ in range(2))
         for dtype in (torch.float64, torch.float32):
-            cols, vals = tri.strict.cols, tri.strict.vals.to(dtype)
+            A = rows64.astype(dtype)
+            info = dict(N=N, nnz=nnz, group=A.group,
+                        mean_row=f"{nnz / max(N, 1):.1f}",
+                        max_row=int(lens.max()) if N else 0)
             x, b = x64.to(dtype), b64.to(dtype)
             inv_d = 1.0 / tri.diag.to(dtype)
             elt = x.element_size()
-            res[(label, dtype)] = _compare(
-                "ell_spmv", f"{label} (N={N}, W={W}), epilogue", dtype,
-                lambda: cuda_ell.ell_spmv(cols, vals, x, b=b, inv_d=inv_d),
-                lambda: cuda_ell.ell_spmv_reference(cols, vals, x, b, inv_d),
-                W * N * (elt + 4) + 4 * N * elt, phase)
+            base = nnz * (elt + 4) + (N + 1) * 4
+            csr = torch_csr(A.rowptr, A.cols, A.vals, A.shape)
+            res[(label, "plain", dtype)] = _compare(
+                "ell_spmv", f"{label}", dtype,
+                lambda: cuda_ell.ell_spmv(A, x),
+                lambda: cuda_ell.ell_spmv_reference(A, x),
+                base + 2 * N * elt, phase, flops=2 * nnz,
+                lib=lambda: csr @ x, extra=info)
+            res[(label, "epilogue", dtype)] = _compare(
+                "ell_spmv", f"{label}, epilogue", dtype,
+                lambda: cuda_ell.ell_spmv(A, x, b, inv_d),
+                lambda: cuda_ell.ell_spmv_reference(A, x, b, inv_d),
+                base + 4 * N * elt, phase, flops=2 * nnz + 2 * N,
+                extra=info)
+
+            def plain_sweeps(A=A, b=b, inv_d=inv_d):
+                y = inv_d * b
+                for _ in range(sweeps):
+                    y = cuda_ell.ell_spmv_reference(A, y, b, inv_d)
+                return y
+
+            res[(label, "sweeps", dtype)] = _compare(
+                "ell_spmv", f"{label}, {sweeps} sweeps (ell_sweeps)", dtype,
+                lambda: cuda_ell.ell_sweeps(A, b, inv_d, sweeps),
+                plain_sweeps, sweeps * (base + 4 * N * elt), phase,
+                flops=sweeps * (2 * nnz + 2 * N), extra=info)
     return res
 
 
@@ -473,12 +669,11 @@ def phase_sparse_kernels(dev) -> dict:
     sizes, as timing rows (the paths' own operands are compared in phases
     ilu_layers and dia_lsc): DIA on A.to_dia() at n=512 (N=1,310,720,
     K=35) and n=1024 (N=5,242,880) and on the rectangular, signed-offset G
-    at n=512; ELL on GtG's ILUT(100, 1e-3) U factor at n=256 (N=65,536),
-    plain and with the epilogue; then the BandedELL SpMM API run as a path
-    (GtG at n=256, k=16), K8 compared on that BandedELL's own arrays. GB/s
-    counts ELL as W N (elt + 4 B) + 2N elements (4N with the epilogue's
-    b and inv_d) and SpMM as
-    W N (elt + 4 B) + 2 N k elements."""
+    at n=512; K7 on the compressed rows of GtG's ILUT(100, 1e-3) U factor
+    at n=256 (N=65,536), plain and with the epilogue; K8 on BandedELL of
+    GtG (n=256, k=16), with torch.sparse.mm beside it, then the BandedELL
+    SpMM API run as a path. K8's GB/s counts its slot-major operand, W N
+    (elt + 4 B) + 2 N k elements; its bound counts the real entries."""
     rng = np.random.default_rng(0)
     res = {}
     dias = {}
@@ -500,37 +695,30 @@ def phase_sparse_kernels(dev) -> dict:
                                        apply="neumann").upper
     say("sparse_kernels",
         case=f"GtG n={SPARSE_ELL_N} ILUT(100, 1e-3) U factor",
-        rows=upper.n, width=upper.strict.width,
+        rows=upper.n, nnz=upper.strict.nnz, group=upper.strict.group,
         host_ilut_s=f"{time.perf_counter() - t0:.2f}")
-    N, W = upper.n, upper.strict.width
+    res.update(compare_sweeps("sparse_kernels", {
+        f"GtG n={SPARSE_ELL_N} ILUT(100, 1e-3) U": upper}, rng))
     bell = BandedELL.from_csr(gtg)
-    k = SPARSE_K
-    b64, x64 = (torch.as_tensor(rng.normal(size=N), device=dev)
-                for _ in range(2))
+    N, k = gtg.shape[0], SPARSE_K
     X64 = torch.as_tensor(rng.normal(size=(N, k)), device=dev)
+    gtg_csr = csr_of(gtg)
+    nnz = gtg.nnz
     for dtype in (torch.float32, torch.float64):
-        cols, vals = upper.strict.cols, upper.strict.vals.to(dtype)
-        x, b = x64.to(dtype), b64.to(dtype)
-        inv_d = 1.0 / upper.diag.to(dtype)
-        elt = x.element_size()
-        nbytes = W * N * (elt + 4) + 2 * N * elt
-        res[("ell_spmv", "U", dtype)] = _compare(
-            "ell_spmv", f"GtG n={SPARSE_ELL_N} ILUT U factor", dtype,
-            lambda: cuda_ell.ell_spmv(cols, vals, x),
-            lambda: cuda_ell.ell_spmv_reference(cols, vals, x), nbytes)
-        res[("ell_spmv", "U epilogue", dtype)] = _compare(
-            "ell_spmv", "U factor, Jacobi epilogue", dtype,
-            lambda: cuda_ell.ell_spmv(cols, vals, x, b=b, inv_d=inv_d),
-            lambda: cuda_ell.ell_spmv_reference(cols, vals, x, b, inv_d),
-            nbytes + 2 * N * elt)
-        # K8 on the arrays BandedELL.matmat hands it below
+        # K8 on the arrays BandedELL.matmat hands it below; the bound
+        # counts the real entries (value and 4-byte column) and X, Y
         scols, svals = bell.ell.cols, bell.ell.vals.to(dtype)
         X = X64.to(dtype)
-        nbytes = bell.ell.width * N * (elt + 4) + 2 * N * k * elt
+        elt = X.element_size()
+        csr = _astype(gtg_csr, dtype)
         res[("ell_spmm", "GtG", dtype)] = _compare(
             "ell_spmm", f"BandedELL of GtG n={SPARSE_ELL_N} k={k}", dtype,
             lambda: cuda_ell.ell_spmm(scols, svals, X),
-            lambda: cuda_ell.ell_spmm_reference(scols, svals, X), nbytes)
+            lambda: cuda_ell.ell_spmm_reference(scols, svals, X),
+            bell.ell.width * N * (elt + 4) + 2 * N * k * elt,
+            flops=2 * nnz * k, lib=lambda: torch.sparse.mm(csr, X),
+            extra=dict(nnz=nnz, width=bell.ell.width),
+            bound_bytes=nnz * (elt + 4) + 2 * N * k * elt)
 
     # the layer's SpMM API as a path: GtG applied to a block of k vectors
     # through BandedELL, with the counts of that run alone
@@ -562,9 +750,6 @@ def _reset_counts() -> None:
 def phase_ilu_slice(dev) -> dict:
     """Path (a): solve_multiphase(lsc_ilut, neumann) at n=64, cold (host
     ILUT factorization included) then warm, each with its own counts."""
-    check(ilu.have_native(),
-          "the native ILUT library did not build (g++); its pure-Python "
-          "fallback would take hours at n=64")
     n = ILU_SLICE["n"]
     runs = {}
     for label in ("cold", "warm"):
@@ -666,9 +851,74 @@ def phase_ilu_layers(dev) -> dict:
     say("ilu_profile", window="10 outer iterations of the warm solve")
     profile_window("ilu_profile",
                    lambda: solve_multiphase(**window, device=dev),
-                   {"ell_spmv_K7": "ell_spmv_kernel",
+                   {"ell_spmv_K7": "rows_spmv_kernel",
                     "a_apply_K2": "fused_stencil_kernel<double, 5>"}, top=6)
     return cmp
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Host microseconds per call of `fn`, over `calls` calls issued back
+    to back (the device keeps up, so this is the host's enqueue cost)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_launch_path(dev) -> dict:
+    """The host cost of a launch, which bounds path (a) once K7 is fast:
+    a PyTorch elementwise op, the two ways to name the current stream,
+    one K7 launch inside a device context with a Stream object (the launch
+    path before the raw stream), through `_build.launch` and through its
+    wrapper, and a
+    Neumann solve of 24 sweeps on GtG's n=64 U factor, one host call per
+    sweep against one for the solve (`cuda_ell.ell_sweeps`)."""
+    op = make_multiphase_operator(ILU_SLICE["n"], eta_n=100.0, device=dev)
+    tri = ilu.ILUPreconditioner.ilut(
+        pcs.lsc_products(op)[0].to_csr(drop_tol=1e-14), fill=100, tau=1e-3,
+        apply="neumann", sweeps=ILU_SLICE["ilut_sweeps"]).upper
+    A, sweeps = tri.strict, tri.sweeps
+    b = torch.ones(A.shape[0], dtype=A.vals.dtype, device=dev)
+    inv_d = 1.0 / tri.diag
+    y = torch.empty_like(b)
+    args = (A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
+            A.shape[0], A.group, b.data_ptr(), b.data_ptr(),
+            inv_d.data_ptr(), y.data_ptr())
+
+    fn = getattr(_build.load("sparse_spmv"), f"ell_spmv_{_tag(b.dtype)}")
+
+    def context_launch():
+        # `_build.launch` as it was written before: a device context and a
+        # Stream object around every call
+        with torch.cuda.device(dev):
+            fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+    def per_sweep():
+        x = inv_d * b
+        for _ in range(sweeps):
+            x = cuda_ell.ell_spmv(A, x, b, inv_d)
+        return x
+
+    res = {
+        "torch_add_us": host_us(lambda: b + b),
+        "current_stream_us": host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "raw_stream_us": host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index)),
+        "k7_context_launch_us": host_us(context_launch),
+        "k7_build_launch_us": host_us(lambda: _build.launch(
+            "sparse_spmv", f"ell_spmv_{_tag(b.dtype)}", dev, *args)),
+        "k7_wrapper_us": host_us(lambda: cuda_ell.ell_spmv(A, b, b, inv_d)),
+        "solve_call_per_sweep_us": host_us(per_sweep, 200) / sweeps,
+        "solve_one_call_us": host_us(lambda: tri.solve(b), 200) / sweeps}
+    say("launch_path", sweeps=sweeps,
+        **{k: f"{v:.2f}" for k, v in res.items()})
+    return res
 
 
 def phase_ilu_level(dev) -> None:
@@ -775,6 +1025,11 @@ def phase_halo_kernels(dev) -> dict:
     for n in sorted({BAND_N, *EXTEND_N, *STAGED_N}):
         cell, xpt, ypt = (rng.uniform(0.1, 0.9, (n, n)) for _ in range(3))
         state = rng.normal(size=(5, n, n))
+        a_csr = None
+        if n == LIBRARY_N:
+            a_csr = csr_of(operator_from_numpy(
+                cell, xpt, ypt, params, device=dev,
+                dtype=torch.float64).A.to_csr())
         for dtype in (torch.float32, torch.float64):
             tag = "f32" if dtype == torch.float32 else "f64"
             op = operator_from_numpy(cell, xpt, ypt, params, device=dev,
@@ -785,6 +1040,11 @@ def phase_halo_kernels(dev) -> dict:
             p, dx, dy = op.params, op.grid.dx, op.grid.dy
             args = (tn, wx, wy, x, p, dx, dy)
             elt = x.element_size()
+            lib = None
+            if a_csr is not None:
+                csr, xf = _astype(a_csr, dtype), x.reshape(-1)
+                lib = (lambda csr=csr, xf=xf: csr @ xf)
+            flops = FLOP_PER_POINT[5] * n * n
             k2 = cuda_stencil.a_apply(*args)
             k2_ms = median_ms(lambda: cuda_stencil.a_apply(*args))
             nbytes = 13 * n * n * elt
@@ -804,7 +1064,8 @@ def phase_halo_kernels(dev) -> dict:
                              lambda: cuda_stencil.a_apply_band(*band),
                              lambda: cuda_stencil.a_apply_band_reference(
                                  *band),
-                             (13 * nl + 12 * h) * n * elt, phase)
+                             (13 * nl + 12 * h) * n * elt, phase,
+                             flops=FLOP_PER_POINT[5] * nl * n)
                 r.update(_versus_k2(phase, f"a_apply_band_{tag}", label,
                                     cuda_stencil.a_apply_band(*band),
                                     k2[:, r0:r0 + nl]))
@@ -816,7 +1077,8 @@ def phase_halo_kernels(dev) -> dict:
                 r = _compare("a_apply_band", label, dtype,
                              lambda: cuda_stencil.a_apply_band(*ext),
                              lambda: cuda_stencil.a_apply_band_reference(
-                                 *ext), (13 * n + 12) * n * elt, phase)
+                                 *ext), (13 * n + 12) * n * elt, phase,
+                             flops=flops, lib=lib)
                 mv = make_fused_apply_kernel(op, "extend")
                 r.update(_versus_k2(phase, f"a_apply_band_{tag}", label,
                                     mv(x), k2))
@@ -831,7 +1093,7 @@ def phase_halo_kernels(dev) -> dict:
                 r = _compare("a_apply_staged", label, dtype,
                              lambda: cuda_stencil.a_apply_staged(*args),
                              lambda: cuda_stencil.a_apply_reference(*args),
-                             nbytes, phase)
+                             nbytes, phase, flops=flops, lib=lib)
                 r.update(_versus_k2(phase, f"a_apply_staged_{tag}", label,
                                     cuda_stencil.a_apply_staged(*args), k2))
                 r["k2_ms"] = k2_ms
@@ -920,6 +1182,26 @@ def phase_ir_slice(dev) -> dict:
           "ir n=64 did not converge to 1e-8")
     check(abs(l2 - IR_N64_L2) <= 0.01 * IR_N64_L2,
           f"ir n=64 L2 {l2:.6e} not within 1% of {IR_N64_L2}")
+    # the same solve with K1 replaced by k1_by_k2: how far K1's f32
+    # rounding alone moves the inner count
+    k1 = cuda_stencil.f_apply
+    drivers._SETUP_CACHE.clear()
+    cuda_stencil.f_apply = k1_by_k2
+    try:
+        t0 = time.perf_counter()
+        rep = solve_multiphase(**IR_N64, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        cuda_stencil.f_apply = k1
+        drivers._SETUP_CACHE.clear()
+    l2 = rep.error_norms["l2"]
+    say("ir_slice", entry="solve_multiphase(precision='ir'), K1 by K2 (p=0)",
+        n=64, inner=rep.iters, jax_inner=IR_N64_JAX_INNER,
+        true_relres=f"{rep.params['true_relres']:.3e}", l2=f"{l2:.6e}",
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    check(rep.converged and rep.params["true_relres"] < 1e-8
+          and abs(l2 - IR_N64_L2) <= 0.01 * IR_N64_L2,
+          "ir n=64 with K1 by K2 did not converge to the same solution")
 
     rep = solve_multiphase(**MONITOR, device=dev)
     hist = np.asarray(rep.params["true_res_history"])
@@ -937,6 +1219,16 @@ def phase_ir_slice(dev) -> dict:
     return runs
 
 
+def kernel_row(kname: str, label: str, r: dict, launches: int) -> dict:
+    """One entry of the kernels' JSON line."""
+    return dict(name=f"{kname} ({label})", route="cuda",
+                source=SOURCE[kname], replaces=REPLACES[kname],
+                launches=launches, max_abs_err=r["err"],
+                max_abs_ref=r["scale"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_us=r["bound_ms"] * 1e3,
+                bound_by=r["bound_by"], library_ms=r["library_ms"])
+
+
 def main() -> None:
     name, _ = phase_device()
     dev = torch.device("cuda", 0)
@@ -950,54 +1242,42 @@ def main() -> None:
     sres = phase_sparse_kernels(dev)
     ilu_runs = phase_ilu_slice(dev)
     ilu_cmp = phase_ilu_layers(dev)
+    phase_launch_path(dev)
     phase_ilu_level(dev)
     dia = phase_dia_lsc(dev)
     halo = phase_halo_kernels(dev)
     phase_bench(dev)
     ir = phase_ir_slice(dev)
-    kernels = []
-    for kname, tag in (("f_apply", "f32"), ("a_apply", "f64")):
-        r = kres[(kname, 512, tag)]
-        kernels.append(dict(
-            name=f"{kname} ({'K1' if kname == 'f_apply' else 'K2'}, "
-                 f"{tag}, n=512)",
-            route="cuda", source=SOURCE[kname], replaces=REPLACES[kname],
-            launches=runs["warm"]["launches"][kname],
-            max_abs_err=r["err"], max_abs_ref=r["scale"],
-            ms=r["ms"], plain_ms=r["plain_ms"]))
-    # K3 and K4 at the shapes the ir f32 solve gives them, with the
-    # launches of that solve's --halo extend / pipelined run
-    for kname, r, label, launches in (
-            ("a_apply_band", halo[("extend", 512, torch.float32)],
-             "K3, f32, n=512 extended by h=1: the ir --halo extend matvec",
-             ir[("warm", "extend")]["launches"]["a_apply_band"]),
-            ("a_apply_staged", halo[("staged", 512, torch.float32)],
-             f"K4, f32, n=512, tile {cuda_stencil.STAGED_TILE}: the ir "
-             "--halo pipelined matvec",
-             ir[("warm", "pipelined")]["launches"]["a_apply_staged"])):
-        kernels.append(dict(
-            name=f"{kname} ({label})", route="cuda", source=SOURCE[kname],
-            replaces=REPLACES[kname], launches=launches,
-            max_abs_err=r["err"], max_abs_ref=r["scale"], ms=r["ms"],
-            plain_ms=r["plain_ms"]))
-    # each sparse kernel: its f64 comparison on an operand of its path, and
-    # the launches of its path's run
     nl, nd = ILU_SLICE["n"], DIA_LSC_N
-    for kname, r, label, launches in (
-            ("dia_spmv", dia["cmp"][(f"A n={nd}", torch.float64)],
-             f"K5/K6, f64, path (b): A n={nd}", dia["launches"]),
-            ("ell_spmv",
-             ilu_cmp[(f"F n={nl} ILUT(400, 3e-5) U", torch.float64)],
-             f"K7, f64, path (a): F n={nl} ILUT U factor, epilogue",
-             ilu_runs["warm"]["launches"]["ell_spmv"]),
-            ("ell_spmm", sres[("ell_spmm", "GtG", torch.float64)],
-             f"K8, f64, BandedELL.matmat path: GtG n={SPARSE_ELL_N}, "
-             f"k={SPARSE_K}", sres["spmm_path_launches"])):
-        kernels.append(dict(
-            name=f"{kname} ({label})", route="cuda", source=SOURCE[kname],
-            replaces=REPLACES[kname], launches=launches,
-            max_abs_err=r["err"], max_abs_ref=r["scale"], ms=r["ms"],
-            plain_ms=r["plain_ms"]))
+    f_u = f"F n={nl} ILUT(400, 3e-5) U"
+    kernels = [kernel_row(kname, label, r, launches)
+               for kname, label, r, launches in (
+        ("f_apply", "K1, f32, n=512", kres[("f_apply", 512, "f32")],
+         runs["warm"]["launches"]["f_apply"]),
+        ("a_apply", "K2, f64, n=512", kres[("a_apply", 512, "f64")],
+         runs["warm"]["launches"]["a_apply"]),
+        # K3 and K4 at the shapes the ir f32 solve gives them, with the
+        # launches of that solve's --halo extend / pipelined run
+        ("a_apply_band",
+         "K3, f32, n=512 extended by h=1: the ir --halo extend matvec",
+         halo[("extend", 512, torch.float32)],
+         ir[("warm", "extend")]["launches"]["a_apply_band"]),
+        ("a_apply_staged",
+         f"K4, f32, n=512, tile {cuda_stencil.STAGED_TILE}: the ir --halo "
+         "pipelined matvec", halo[("staged", 512, torch.float32)],
+         ir[("warm", "pipelined")]["launches"]["a_apply_staged"]),
+        # each sparse kernel: its f64 comparison on an operand of its path,
+        # and the launches of its path's run
+        ("dia_spmv", f"K5/K6, f64, path (b): A n={nd}",
+         dia["cmp"][(f"A n={nd}", torch.float64)], dia["launches"]),
+        ("ell_spmv", f"K7, f64, path (a): {f_u}, y = S x (the path's "
+         "sweeps add the epilogue)",
+         ilu_cmp[(f_u, "plain", torch.float64)],
+         ilu_runs["warm"]["launches"]["ell_spmv"]),
+        ("ell_spmm", f"K8, f64, BandedELL.matmat path: GtG "
+         f"n={SPARSE_ELL_N}, k={SPARSE_K}",
+         sres[("ell_spmm", "GtG", torch.float64)],
+         sres["spmm_path_launches"]))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

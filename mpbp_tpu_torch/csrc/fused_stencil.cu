@@ -14,20 +14,28 @@
 // mpbp_tpu/models/fused.py writes it (flux form: differences first, then
 // scale; Ts = 1 - Tn taken at each neighbour), and templated over the plane
 // accessor that serves a neighbour read at (dr, dc), |dr|, |dc| <= 1:
-//   Plane      global plane, rows and columns wrap periodically (K1, K2)
+//   WinPlane   register window of a thread's points, wrapped once (K1)
+//   Plane      global plane, rows and columns wrap periodically (K2)
 //   BandPlane  global extended-row band: no row wrap, columns wrap (K3)
 //   TilePlane  shared-memory footprint of one tile (K4)
-// So K2, K3 and K4 run the same expressions and differ at most by the
-// compiler's FMA contraction.
+// So K1-K4 run the same expressions and differ at most by the compiler's
+// FMA contraction.
 //
 // Bound: HBM bytes. K1 reads 7 planes and writes 4, K2-K4 read 8 and write
-// 5; ~120 flops per point is far below the card's flop/byte balance. One
-// pass, no coefficient planes, each output written once. K1-K3 share the
-// ~40 neighbour reads per point between the threads of a 32x8 block through
-// L1/L2. K4 stages each 2-D tile's (TR+2) x (TC+2) footprint of theta and
-// the 5 state planes in shared memory with cp.async, double-buffered: a
-// persistent CTA starts the copies of its next tile before it computes the
-// current one.
+// 5; ~190-250 operations per point are far below the card's flop/byte
+// balance. One pass, no coefficient planes, each output written once. K2
+// and K3 take one point per thread and share the ~40 neighbour reads per
+// point between the threads of a 32x8 block through L1/L2. K1 (the most
+// launched kernel: the inner matvec and every velocity-MG level) takes 2
+// consecutive points of a row per thread: it wraps its neighbour rows and
+// columns once per thread, by a compare and add (where Plane pays two
+// integer % per read), and reads theta and the 4 state planes as 3 x 4
+// register windows (WinPlane), with one 8- or 16-byte load for the two
+// points' own columns of each row and one store per output plane. K4
+// stages each 2-D tile's (TR+2) x (TC+2) footprint of theta and the 5
+// state planes in shared memory with cp.async, double-buffered: a
+// persistent CTA starts the copies of its next tile before it computes
+// the current one.
 //
 // Inputs: theta_n (n, n), pointwise face planes Wnx, Wny (n, n), state
 // (NF, n, n) = [un, vn, us, vs(, p)]; output (NF, n, n). K3 takes theta
@@ -37,6 +45,8 @@
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -69,7 +79,7 @@ Coefs<T> make_coefs(double c, double d, double xi, double eta_n,
   return k;
 }
 
-// K1/K2: one (n, n) plane, read at (r+dr, c+dc) with periodic wrap.
+// K2: one (n, n) plane, read at (r+dr, c+dc) with periodic wrap.
 template <typename T>
 struct Plane {
   const T* __restrict__ p;
@@ -102,6 +112,45 @@ struct TilePlane {
   int ld, at;
   __device__ __forceinline__ T operator()(int dr, int dc) const {
     return s[at + dr * ld + dc];
+  }
+};
+
+// K1: one plane's 3 x (P+2) window around a thread's P consecutive points
+// (rows r-1..r+1, columns c0-1..c0+P), held in registers; j is the point.
+template <typename T, int P>
+struct WinPlane {
+  const T (&w)[3][P + 2];
+  int j;
+  __device__ __forceinline__ T operator()(int dr, int dc) const {
+    return w[1 + dr][1 + j + dc];
+  }
+};
+
+// 2 consecutive values of one row by one 8- (f32) or 16-byte (f64) access.
+template <typename T, int P>
+struct RowVec;
+template <>
+struct RowVec<float, 2> {
+  using V = float2;
+  __device__ __forceinline__ static void load(const float* p, float (&a)[2]) {
+    const V v = __ldg(reinterpret_cast<const V*>(p));
+    a[0] = v.x; a[1] = v.y;
+  }
+  __device__ __forceinline__ static void store(float* p, const float (&a)[2]) {
+    *reinterpret_cast<V*>(p) = V{a[0], a[1]};
+  }
+};
+template <>
+struct RowVec<double, 2> {
+  using V = double2;
+  __device__ __forceinline__ static void load(const double* p,
+                                              double (&a)[2]) {
+    const V v = __ldg(reinterpret_cast<const V*>(p));
+    a[0] = v.x; a[1] = v.y;
+  }
+  __device__ __forceinline__ static void store(double* p,
+                                               const double (&a)[2]) {
+    *reinterpret_cast<V*>(p) = V{a[0], a[1]};
   }
 };
 
@@ -208,7 +257,7 @@ __device__ __forceinline__ void point_apply(
   }
 }
 
-// K1 (NF = 4) and K2 (NF = 5): one thread per point of the periodic grid.
+// K2 (NF = 5): one thread per point of the periodic grid.
 template <typename T, int NF>
 __global__ void __launch_bounds__(256)
 fused_stencil_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
@@ -228,6 +277,97 @@ fused_stencil_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
                      __ldg(wnx + at), __ldg(wny + at), k, o);
 #pragma unroll
   for (int f = 0; f < NF; ++f) out[f * plane + at] = o[f];
+}
+
+// The P points c0..c0+P-1 of one row: kVec loads them with one vector
+// access (n % P == 0 and 16-byte aligned planes), else point by point at
+// the wrapped columns cc[1..P].
+template <typename T, int P, bool kVec>
+__device__ __forceinline__ void load_points(const T* __restrict__ row, int c0,
+                                            const int (&cc)[P + 2],
+                                            T (&a)[P]) {
+  if constexpr (kVec) {
+    RowVec<T, P>::load(row + c0, a);
+  } else {
+#pragma unroll
+    for (int q = 0; q < P; ++q) a[q] = __ldg(row + cc[1 + q]);
+  }
+}
+
+// A plane's 3 x (P+2) window: rows at offsets rows[0..2] (r-1, r, r+1,
+// wrapped), columns cc[0..P+1] (c0-1 .. c0+P, wrapped).
+template <typename T, int P, bool kVec>
+__device__ __forceinline__ void load_window(const T* __restrict__ p,
+                                            const size_t (&rows)[3], int c0,
+                                            const int (&cc)[P + 2],
+                                            T (&w)[3][P + 2]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const T* row = p + rows[i];
+    T mid[P];
+    load_points<T, P, kVec>(row, c0, cc, mid);
+    w[i][0] = __ldg(row + cc[0]);
+#pragma unroll
+    for (int q = 0; q < P; ++q) w[i][1 + q] = mid[q];
+    w[i][P + 1] = __ldg(row + cc[P + 1]);
+  }
+}
+
+// K1 (NF = 4): each thread computes P consecutive points c0 .. c0+P-1 of
+// row r. The wrapped rows and columns are computed once per thread, by a
+// compare and add; theta and the 4 state planes are read as 3 x (P+2)
+// register windows, so a value is loaded about 3(P+2)/P times, not 9; with
+// kVec the points' own columns go by one 8- or 16-byte load per row and
+// the outputs by one store per plane. point_apply is K2-K4's arithmetic.
+template <typename T, int P, bool kVec>
+__global__ void __launch_bounds__(256)
+f_apply_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
+               const T* __restrict__ wny, const T* __restrict__ x,
+               T* __restrict__ out, int n, Coefs<T> k) {
+  const int c0 = (blockIdx.x * blockDim.x + threadIdx.x) * P;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= n || c0 >= n) return;
+  const size_t plane = static_cast<size_t>(n) * n;
+  const size_t rows[3] = {static_cast<size_t>(r == 0 ? n - 1 : r - 1) * n,
+                          static_cast<size_t>(r) * n,
+                          static_cast<size_t>(r == n - 1 ? 0 : r + 1) * n};
+  int cc[P + 2];
+#pragma unroll
+  for (int q = 0; q < P + 2; ++q) {
+    const int c = c0 - 1 + q;   // in [-1, n - 1 + P]
+    cc[q] = c < 0 ? c + n : (c < n ? c : c % n);
+  }
+  T th[3][P + 2], un[3][P + 2], vn[3][P + 2], us[3][P + 2], vs[3][P + 2];
+  load_window<T, P, kVec>(tn, rows, c0, cc, th);
+  load_window<T, P, kVec>(x, rows, c0, cc, un);
+  load_window<T, P, kVec>(x + plane, rows, c0, cc, vn);
+  load_window<T, P, kVec>(x + 2 * plane, rows, c0, cc, us);
+  load_window<T, P, kVec>(x + 3 * plane, rows, c0, cc, vs);
+  T wx[P], wy[P];
+  load_points<T, P, kVec>(wnx + rows[1], c0, cc, wx);
+  load_points<T, P, kVec>(wny + rows[1], c0, cc, wy);
+  T o[4][P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const WinPlane<T, P> pu{un, j};
+    T oj[4];
+    point_apply<T, 4>(WinPlane<T, P>{th, j}, pu, WinPlane<T, P>{vn, j},
+                      WinPlane<T, P>{us, j}, WinPlane<T, P>{vs, j}, pu,
+                      wx[j], wy[j], k, oj);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) o[f][j] = oj[f];
+  }
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    T* dst = out + f * plane + rows[1];
+    if constexpr (kVec) {
+      RowVec<T, P>::store(dst + c0, o[f]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        if (c0 + j < n) dst[c0 + j] = o[f][j];
+    }
+  }
 }
 
 // K3: one thread per point of an (n_loc, n) band; band row r reads
@@ -353,6 +493,36 @@ int launch(const T* tn, const T* wnx, const T* wny, const T* x, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1's points per thread: 2, one 8-byte (f32) or 16-byte (f64) access.
+// On the H100, 2 points a thread ran faster than 1 or 4 at every n >= 512,
+// f32 and f64.
+constexpr int kPoints = 2;
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T, int P>
+int launch_f(const T* tn, const T* wnx, const T* wny, const T* x, T* out,
+             int n, const Coefs<T>& k, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int groups = (n + P - 1) / P;
+  const dim3 grid((groups + kBlock.x - 1) / kBlock.x,
+                  (n + kBlock.y - 1) / kBlock.y);
+  if constexpr (P > 1) {
+    if (n % P == 0 && aligned16(tn) && aligned16(wnx) && aligned16(wny)
+        && aligned16(x) && aligned16(out)) {
+      f_apply_kernel<T, P, true><<<grid, kBlock, 0, s>>>(tn, wnx, wny, x,
+                                                          out, n, k);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  f_apply_kernel<T, P, false><<<grid, kBlock, 0, s>>>(tn, wnx, wny, x, out,
+                                                       n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_band(const T* tn_ext, const T* wnx, const T* wny, const T* x_ext,
                 T* out, int n_loc, int n, int h, const Coefs<T>& k,
@@ -434,8 +604,15 @@ int launch_staged(const T* tn, const T* wnx, const T* wny, const T* x,
                             stream);                                        \
   }
 
-FUSED_STENCIL_ENTRY(f_apply_f32, float, 4)
-FUSED_STENCIL_ENTRY(f_apply_f64, double, 4)
+#define F_APPLY_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
+                      T* out, int n, COEF_PARAMS, void* stream) {           \
+    return launch_f<T, kPoints>(tn, wnx, wny, x, out, n, COEF_ARGS(T),      \
+                                stream);                                    \
+  }
+
+F_APPLY_ENTRY(f_apply_f32, float)
+F_APPLY_ENTRY(f_apply_f64, double)
 FUSED_STENCIL_ENTRY(a_apply_f32, float, 5)
 FUSED_STENCIL_ENTRY(a_apply_f64, double, 5)
 BAND_ENTRY(a_apply_band_f32, float)

@@ -1,6 +1,6 @@
 // Sparse matrix-vector and matrix-matrix kernels for Hopper (sm_90a): the
-// DIA SpMV, the ELL SpMV (with an optional Jacobi epilogue) and the ELL
-// SpMM, each in float and double.
+// DIA SpMV, the SpMV over compressed rows (with an optional Jacobi
+// epilogue) and the ELL SpMM, each in float and double.
 //
 // Replaces, in mpbp_tpu/ops:
 //   dia_spmv (K5, K6)  pallas_dia.py  dia_spmv_pallas, dia_spmv_pallas_streamed
@@ -9,12 +9,23 @@
 //
 // What bounds them: device-memory bytes. Each nonzero is used once, for one
 // multiply-add, against 8-12 bytes of matrix payload (value, plus a 4-byte
-// column for ELL). The design keeps every payload read coalesced: DIA data
-// is (K, nrows) and ELL data is slot-major (W, nrows), so the 32 threads of
-// a warp, one row each, read 32 consecutive entries of one diagonal or slot.
-// The x reads of a DIA diagonal are contiguous too, and those of a banded
-// ELL slot nearly so; x is re-read once per diagonal or slot, and L2 (50 MB)
-// serves the re-reads.
+// column for ELL and compressed rows). DIA data is (K, nrows) and ELL data
+// slot-major (W, nrows), so the 32 threads of a warp, one row each, read 32
+// consecutive entries of one diagonal or slot. The x reads of a DIA
+// diagonal are contiguous too; x is re-read once per diagonal or slot, and
+// L2 (50 MB) serves the re-reads.
+//
+// K7 reads only the real entries, in compressed rows (int32 row pointers,
+// columns and values): its bound is the bytes of the real entries, which a
+// padded layout would multiply (F's ILUT factors pad to 400 slots against a
+// mean of 125). A group of G lanes (a power of two, 2-32, chosen on the
+// host from the mean row length over the entries a 16-byte load holds)
+// shares each row: the lanes read
+// consecutive entries, with 16-byte loads of values and columns where the
+// row segment is aligned, loop over a row longer than the group, and reduce
+// by __shfl_down_sync; the group's first lane applies the epilogue. So a
+// matrix of N rows runs N*G threads, and F's 16,384 rows fill the card's
+// 132 SMs with 16,384 warps where one thread per row gave 64 blocks.
 //
 // The TPU kernels' machinery stays behind: the doubled x that avoided a
 // modulo, the 128-lane band/residue encoding, the streamed VMEM windows
@@ -58,24 +69,77 @@ __global__ void dia_spmv_kernel(const T* __restrict__ data,
   y[i] = acc;
 }
 
-// acc_i = sum_w vals[w, i] * x[cols[w, i]] over slot-major (W, nrows)
-// arrays; y[i] = acc_i, or inv_d[i] * (b[i] - acc_i) with the epilogue (one
-// Jacobi/Neumann sweep of a triangular solve).
-template <typename T, bool kEpilogue>
-__global__ void ell_spmv_kernel(const int32_t* __restrict__ cols,
-                                const T* __restrict__ vals, int W,
-                                int64_t nrows, const T* __restrict__ x,
-                                const T* __restrict__ b,
-                                const T* __restrict__ inv_d,
-                                T* __restrict__ y) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= nrows) return;
+// 16 bytes of values and the matching columns.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using V = float4;
+  using C = int4;
+  static constexpr int n = 4;
+};
+template <>
+struct Vec16<double> {
+  using V = double2;
+  using C = int2;
+  static constexpr int n = 2;
+};
+
+__device__ __forceinline__ float dot16(const float4& v, const int4& c,
+                                       const float* __restrict__ x,
+                                       float acc) {
+  acc += v.x * __ldg(x + c.x);
+  acc += v.y * __ldg(x + c.y);
+  acc += v.z * __ldg(x + c.z);
+  acc += v.w * __ldg(x + c.w);
+  return acc;
+}
+
+__device__ __forceinline__ double dot16(const double2& v, const int2& c,
+                                        const double* __restrict__ x,
+                                        double acc) {
+  acc += v.x * __ldg(x + c.x);
+  acc += v.y * __ldg(x + c.y);
+  return acc;
+}
+
+// acc_r = sum_{p in [rowptr[r], rowptr[r+1])} vals[p] * x[cols[p]], by a
+// group of G lanes per row; y[r] = acc_r, or inv_d[r] * (b[r] - acc_r) with
+// the epilogue. kVec: vals and cols start 16-byte aligned, so each row's
+// entries from its first multiple of Vec16<T>::n go by 16-byte loads (its
+// head and tail scalar). No thread returns early: every lane of a warp
+// reaches the shuffles.
+template <typename T, int G, bool kVec, bool kEpilogue>
+__global__ void __launch_bounds__(kThreads)
+    rows_spmv_kernel(const int32_t* __restrict__ rowptr,
+                     const int32_t* __restrict__ cols,
+                     const T* __restrict__ vals, int64_t nrows,
+                     const T* __restrict__ x, const T* __restrict__ b,
+                     const T* __restrict__ inv_d, T* __restrict__ y) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int64_t row = t / G;
+  const int lane = static_cast<int>(t & (G - 1));
+  const bool live = row < nrows;
+  const int start = live ? __ldg(rowptr + row) : 0;
+  const int end = live ? __ldg(rowptr + row + 1) : 0;
   T acc = T(0);
-  for (int w = 0; w < W; ++w) {
-    const int64_t p = w * nrows + i;
-    acc += vals[p] * x[cols[p]];
+  int p = start + lane;
+  if (kVec) {
+    constexpr int V = Vec16<T>::n;
+    const int body = min(end, (start + V - 1) & ~(V - 1));
+    const int nvec = (end - body) / V;
+    for (; p < body; p += G) acc += __ldg(vals + p) * __ldg(x + __ldg(cols + p));
+    const auto* vv = reinterpret_cast<const typename Vec16<T>::V*>(vals + body);
+    const auto* cv = reinterpret_cast<const typename Vec16<T>::C*>(cols + body);
+    for (int q = lane; q < nvec; q += G)
+      acc = dot16(__ldg(vv + q), __ldg(cv + q), x, acc);
+    p = body + nvec * V + lane;
   }
-  y[i] = kEpilogue ? inv_d[i] * (b[i] - acc) : acc;
+  for (; p < end; p += G) acc += __ldg(vals + p) * __ldg(x + __ldg(cols + p));
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off, G);
+  if (live && lane == 0) y[row] = kEpilogue ? inv_d[row] * (b[row] - acc) : acc;
 }
 
 // Y[i, c] = sum_w vals[w, i] * X[cols[w, i], c], X and Y row-major with k
@@ -108,26 +172,75 @@ int dia_spmv(const void* data, const void* offsets, int K, int64_t nrows,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int G, bool kVec>
+int rows_spmv_launch(const int32_t* rowptr, const int32_t* cols,
+                     const T* vals, int64_t nrows, const T* x, const T* b,
+                     const T* inv_d, T* y, cudaStream_t s) {
+  const unsigned blocks = blocks_for(nrows * G);
+  if (b != nullptr) {
+    rows_spmv_kernel<T, G, kVec, true><<<blocks, kThreads, 0, s>>>(
+        rowptr, cols, vals, nrows, x, b, inv_d, y);
+  } else {
+    rows_spmv_kernel<T, G, kVec, false><<<blocks, kThreads, 0, s>>>(
+        rowptr, cols, vals, nrows, x, b, inv_d, y);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int G>
+int rows_spmv_group(const int32_t* rowptr, const int32_t* cols,
+                    const T* vals, int64_t nrows, const T* x, const T* b,
+                    const T* inv_d, T* y, cudaStream_t s) {
+  const bool aligned = reinterpret_cast<uintptr_t>(vals) % 16 == 0
+                       && reinterpret_cast<uintptr_t>(cols) % 16 == 0;
+  return aligned
+      ? rows_spmv_launch<T, G, true>(rowptr, cols, vals, nrows, x, b, inv_d,
+                                     y, s)
+      : rows_spmv_launch<T, G, false>(rowptr, cols, vals, nrows, x, b,
+                                      inv_d, y, s);
+}
+
 template <typename T>
-int ell_spmv(const void* cols, const void* vals, int W, int64_t nrows,
-             const void* x, const void* b, const void* inv_d, void* y,
-             void* stream) {
+int ell_spmv(const void* rowptr, const void* cols, const void* vals,
+             int64_t nrows, int group, const void* x, const void* b,
+             const void* inv_d, void* y, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  const auto* rp = static_cast<const int32_t*>(rowptr);
   const auto* c = static_cast<const int32_t*>(cols);
   const auto* v = static_cast<const T*>(vals);
   const auto* xx = static_cast<const T*>(x);
   const auto* bb = static_cast<const T*>(b);
   const auto* dd = static_cast<const T*>(inv_d);
   auto* yy = static_cast<T*>(y);
-  if (b != nullptr) {
-    ell_spmv_kernel<T, true><<<blocks_for(nrows), kThreads, 0, s>>>(
-        c, v, W, nrows, xx, bb, dd, yy);
-  } else {
-    ell_spmv_kernel<T, false><<<blocks_for(nrows), kThreads, 0, s>>>(
-        c, v, W, nrows, xx, bb, dd, yy);
+  switch (group) {
+    case 2: return rows_spmv_group<T, 2>(rp, c, v, nrows, xx, bb, dd, yy, s);
+    case 4: return rows_spmv_group<T, 4>(rp, c, v, nrows, xx, bb, dd, yy, s);
+    case 8: return rows_spmv_group<T, 8>(rp, c, v, nrows, xx, bb, dd, yy, s);
+    case 16: return rows_spmv_group<T, 16>(rp, c, v, nrows, xx, bb, dd, yy, s);
+    case 32: return rows_spmv_group<T, 32>(rp, c, v, nrows, xx, bb, dd, yy, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
+
+// `sweeps` Jacobi sweeps x <- inv_d * (b - A x), one launch each, from x
+// in buf0; the sweeps alternate between buf0 and buf1, so the result lies
+// in buf1 for an odd count and in buf0 for an even one. One host call
+// launches them all: a Neumann triangular solve costs one call, not one
+// per sweep.
+template <typename T>
+int ell_sweeps(const void* rowptr, const void* cols, const void* vals,
+               int64_t nrows, int group, const void* b, const void* inv_d,
+               void* buf0, void* buf1, int sweeps, void* stream) {
+  void* bufs[2] = {buf0, buf1};
+  for (int i = 0; i < sweeps; ++i) {
+    const int err = ell_spmv<T>(rowptr, cols, vals, nrows, group,
+                                bufs[i & 1], b, inv_d, bufs[(i + 1) & 1],
+                                stream);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 
 template <typename T>
 int ell_spmm(const void* cols, const void* vals, int W, int64_t nrows,
@@ -153,16 +266,32 @@ int dia_spmv_f64(const void* data, const void* offsets, int K, int64_t nrows,
   return dia_spmv<double>(data, offsets, K, nrows, ncols, x, y, stream);
 }
 
-int ell_spmv_f32(const void* cols, const void* vals, int W, int64_t nrows,
-                 const void* x, const void* b, const void* inv_d, void* y,
-                 void* stream) {
-  return ell_spmv<float>(cols, vals, W, nrows, x, b, inv_d, y, stream);
+int ell_spmv_f32(const void* rowptr, const void* cols, const void* vals,
+                 int64_t nrows, int group, const void* x, const void* b,
+                 const void* inv_d, void* y, void* stream) {
+  return ell_spmv<float>(rowptr, cols, vals, nrows, group, x, b, inv_d, y,
+                         stream);
 }
 
-int ell_spmv_f64(const void* cols, const void* vals, int W, int64_t nrows,
-                 const void* x, const void* b, const void* inv_d, void* y,
-                 void* stream) {
-  return ell_spmv<double>(cols, vals, W, nrows, x, b, inv_d, y, stream);
+int ell_spmv_f64(const void* rowptr, const void* cols, const void* vals,
+                 int64_t nrows, int group, const void* x, const void* b,
+                 const void* inv_d, void* y, void* stream) {
+  return ell_spmv<double>(rowptr, cols, vals, nrows, group, x, b, inv_d, y,
+                          stream);
+}
+
+int ell_sweeps_f32(const void* rowptr, const void* cols, const void* vals,
+                   int64_t nrows, int group, const void* b, const void* inv_d,
+                   void* buf0, void* buf1, int sweeps, void* stream) {
+  return ell_sweeps<float>(rowptr, cols, vals, nrows, group, b, inv_d, buf0,
+                           buf1, sweeps, stream);
+}
+
+int ell_sweeps_f64(const void* rowptr, const void* cols, const void* vals,
+                   int64_t nrows, int group, const void* b, const void* inv_d,
+                   void* buf0, void* buf1, int sweeps, void* stream) {
+  return ell_sweeps<double>(rowptr, cols, vals, nrows, group, b, inv_d, buf0,
+                            buf1, sweeps, stream);
 }
 
 int ell_spmm_f32(const void* cols, const void* vals, int W, int64_t nrows,

@@ -5,7 +5,7 @@ full/hybrid/ir, the per-iteration true-residual monitor).
 Everything is assembled in f64 (or the requested dtype) directly on the
 requested device. The outer matvec is kernel K2 and the F matvecs of the
 matrix-free inner solves are kernel K1 (`ops/cuda_stencil.py`); the ILU
-kinds factor on the host (`mpbp_tpu.native`) and apply their triangular
+kinds factor on the host (`mpbp_tpu_torch.native`) and apply their triangular
 solves on the device, each Neumann sweep one launch of kernel K7
 (`ops/cuda_ell.py`). On a CPU device every kernel runs its plain PyTorch
 version.

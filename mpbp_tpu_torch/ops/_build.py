@@ -41,8 +41,11 @@ _STENCIL_ARGS = [_P] * 5 + [_I32] + [_F64] * 9 + [_P]
 _STENCIL3_ARGS = [_P] * 5 + [_I32] * 3 + [_F64] * 9 + [_P]
 # dia_spmv: data, offsets, K, nrows, ncols, x, y, stream
 _DIA_ARGS = [_P, _P, _I32, _I64, _I64, _P, _P, _P]
-# ell_spmv: cols, vals, W, nrows, x, b, inv_d, y, stream
-_ELL_ARGS = [_P, _P, _I32, _I64, _P, _P, _P, _P, _P]
+# ell_spmv: rowptr, cols, vals, nrows, group, x, b, inv_d, y, stream
+_ELL_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P]
+# ell_sweeps: rowptr, cols, vals, nrows, group, b, inv_d, buf0, buf1,
+# sweeps, stream
+_SWEEPS_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _I32, _P]
 # ell_spmm: cols, vals, W, nrows, k, X, Y, stream
 _SPMM_ARGS = [_P, _P, _I32, _I64, _I64, _P, _P, _P]
 
@@ -60,6 +63,7 @@ SOURCES = {
                       **_both("a_apply_staged", _STENCIL3_ARGS)},
     "sparse_spmv": {**_both("dia_spmv", _DIA_ARGS),
                     **_both("ell_spmv", _ELL_ARGS),
+                    **_both("ell_sweeps", _SWEEPS_ARGS),
                     **_both("ell_spmm", _SPMM_ARGS)},
 }
 
@@ -163,12 +167,22 @@ def load(stem: str) -> ctypes.CDLL:
 def launch(stem: str, entry: str, device: torch.device, *args) -> None:
     """Call C entry point `entry` of source `stem` with `args` and the
     current stream of `device` (a CUDA device); raise RuntimeError if the
-    launch returns a CUDA error."""
-    lib = load(stem)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*args, stream)
+    launch returns a CUDA error. The stream comes as a raw handle
+    (`torch._C._cuda_getCurrentRawStream`: 0.14 us of host time against
+    6.3 us for `current_stream(device).cuda_stream` on an H100 machine,
+    chip_smoke.py's launch_path phase), and the device is switched only
+    when it is not the current one: every launch of an iterative solve
+    pays this path."""
+    fn = getattr(load(stem), entry)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
-        msg = getattr(lib, f"{stem}_error_string")(err).decode()
+        msg = getattr(_libs[stem], f"{stem}_error_string")(err).decode()
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err} "
                            f"({msg})")

@@ -1,21 +1,28 @@
-"""Kernels K7 (ELL SpMV) and K8 (ELL SpMM): hand-written CUDA for Hopper
-(`csrc/sparse_spmv.cu`, entry points ell_spmv_* and ell_spmm_*), their
-plain PyTorch versions, and the `BandedELL` container.
+"""Kernels K7 (sparse matrix-vector product over compressed rows) and K8
+(ELL SpMM): hand-written CUDA for Hopper (`csrc/sparse_spmv.cu`, entry
+points ell_spmv_* and ell_spmm_*), their plain PyTorch versions, K7's
+operand `CompressedRows` and the `BandedELL` container.
 
 Replaces `mpbp_tpu/ops/pallas_ell.py`:
-  * `ell_spmv` (K7) replaces `ell_spmv_pallas`. With `b` and `inv_d` it
-    also applies the Jacobi epilogue inv_d * (b - A x), so one Neumann
-    sweep of a triangular solve (`ops/trisolve.py`) is one launch.
-  * `ell_spmm` (K8) replaces `ell_spmm_pallas`: A @ X for X (N, k),
-    one thread per output entry, gathering X rows (no one-hot MXU patch).
+  * `ell_spmv` (K7) replaces `ell_spmv_pallas`: y = A x. With `b` and
+    `inv_d` it also applies the Jacobi epilogue inv_d * (b - A x), so one
+    Neumann sweep of a triangular solve (`ops/trisolve.py`) is one launch;
+    `ell_sweeps` makes all the sweeps of one solve in one host call.
+  * `ell_spmm` (K8) replaces `ell_spmm_pallas`: A @ X for X (N, k), one
+    thread per output entry, gathering X rows (no one-hot MXU patch).
 
-The kernels take plain ELL with absolute int32 columns, stored slot-major:
-`cols` and `vals` are (W, nrows), so a warp reads 32 consecutive rows of
-one slot (the TPU kernel's `idx3` choice); `ops/sparse.ELLMatrix` is the
-container that holds them. Padding slots carry value 0 and any in-range
-column. `BandedELL` keeps the JAX package's 128-lane band and
-residue layout for parity; `to_ell()` turns it into absolute columns. The
-band encoding, the doubled x and the VMEM gates existed for Mosaic only.
+K7 reads `CompressedRows`: the real entries only, in row order, with int32
+row pointers, columns and values on the device, and no padding. The ILU
+factors it sweeps have rows of very unequal length (F's at n=64: mean 125,
+longest 400), so an ELL block padded to the longest row streams mostly
+zeros. A group of `group` lanes (a power of two, 2-32, chosen from the
+mean row length and the value type when the operand is built) shares
+each row. K8 still takes plain slot-major ELL, `cols` and `vals` (W,
+nrows) with absolute int32 columns (`ops/sparse.ELLMatrix`); padding
+slots carry value 0.
+`BandedELL` keeps the JAX package's 128-lane band and residue layout for
+parity; `to_ell()` turns it into absolute columns. The band encoding, the
+doubled x and the VMEM gates existed for Mosaic only.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernel or raise. `LAUNCHES` counts kernel launches only.
@@ -35,14 +42,92 @@ LAUNCHES = {"ell_spmv": 0, "ell_spmm": 0}
 
 _LANES = 128
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_MAX_GROUP = 32
 
 
-def ell_spmv_reference(cols: torch.Tensor, vals: torch.Tensor,
-                       x: torch.Tensor, b: torch.Tensor | None = None,
+def group_size(mean_row: float, dtype: torch.dtype) -> int:
+    """K7's lanes per row: the least power of two, from 2 to 32, whose
+    lanes cover the mean row in one pass of 16-byte loads (four f32 or two
+    f64 entries a lane)."""
+    per_lane = 128 // torch.finfo(dtype).bits
+    g = 2
+    while g < _MAX_GROUP and per_lane * g < mean_row:
+        g *= 2
+    return g
+
+
+@dataclasses.dataclass(eq=False)
+class CompressedRows:
+    """K7's operand: the real entries of an (N, ncols) sparse matrix in
+    row order. `rowptr` (N+1,), `cols` (nnz,) int32 and `vals` (nnz,) lie
+    on one device; `group` is the kernel's lanes per row."""
+
+    shape: tuple[int, int]
+    rowptr: torch.Tensor   # (N+1,) int32
+    cols: torch.Tensor     # (nnz,) int32
+    vals: torch.Tensor     # (nnz,)
+    group: int
+
+    @property
+    def nnz(self) -> int:
+        return int(self.cols.shape[0])
+
+    @classmethod
+    def from_arrays(cls, shape, indptr, indices, vals,
+                    dtype: torch.dtype = torch.float64, *,
+                    device: torch.device | str) -> "CompressedRows":
+        """From host CSR arrays (indptr, indices, vals), every entry kept."""
+        indptr = np.asarray(indptr, np.int64)
+        nrows, ncols = (int(s) for s in shape)
+        if max(nrows, ncols, int(indptr[-1])) >= 2 ** 31:
+            raise ValueError(f"CompressedRows: shape {shape} or nnz "
+                             f"{int(indptr[-1])} exceeds int32 indices")
+        return cls((nrows, ncols),
+                   torch.tensor(indptr.astype(np.int32), device=device),
+                   torch.tensor(np.asarray(indices, np.int32), device=device),
+                   torch.tensor(np.asarray(vals), dtype=dtype, device=device),
+                   group_size(indptr[-1] / max(nrows, 1), dtype))
+
+    @classmethod
+    def from_ell(cls, ell) -> "CompressedRows":
+        """The nonzero slots of a slot-major ELLMatrix, on its device (the
+        padding carries value 0)."""
+        vals, cols = ell.vals.t(), ell.cols.t()
+        keep = vals != 0
+        rowptr = torch.zeros(ell.shape[0] + 1, dtype=torch.int32,
+                             device=vals.device)
+        torch.cumsum(keep.sum(1), 0, out=rowptr[1:])
+        nnz = int(rowptr[-1])
+        return cls(tuple(ell.shape), rowptr, cols[keep].contiguous(),
+                   vals[keep].contiguous(),
+                   group_size(nnz / max(ell.shape[0], 1), vals.dtype))
+
+    def astype(self, dtype: torch.dtype) -> "CompressedRows":
+        """The same rows with values of `dtype` and that type's group."""
+        return dataclasses.replace(
+            self, vals=self.vals.to(dtype),
+            group=group_size(self.nnz / max(self.shape[0], 1), dtype))
+
+    @functools.cached_property
+    def rows(self) -> torch.Tensor:
+        """Each entry's row (int64): the plain version's segment ids."""
+        counts = (self.rowptr[1:] - self.rowptr[:-1]).long()
+        return torch.repeat_interleave(
+            torch.arange(self.shape[0], device=self.cols.device), counts)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """A @ x through K7 (plain version on CPU)."""
+        return ell_spmv(self, x)
+
+
+def ell_spmv_reference(A: CompressedRows, x: torch.Tensor,
+                       b: torch.Tensor | None = None,
                        inv_d: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch K7 on slot-major (W, N) arrays: gather, multiply, sum
-    over slots; with `b` and `inv_d`, inv_d * (b - A x)."""
-    acc = (vals * x[cols]).sum(0)
+    """Plain PyTorch K7: the segment sum of vals * x[cols] over each row
+    (`index_add_`, as `CSRMatrix.matvec`); with `b` and `inv_d`,
+    inv_d * (b - A x)."""
+    acc = torch.zeros(A.shape[0], dtype=x.dtype, device=x.device)
+    acc.index_add_(0, A.rows, A.vals * x[A.cols])
     return acc if b is None else inv_d * (b - acc)
 
 
@@ -57,67 +142,103 @@ def ell_spmm_reference(cols: torch.Tensor, vals: torch.Tensor,
     return Y
 
 
-def _check(name, cols, vals, *vecs) -> None:
-    if cols.dim() != 2 or tuple(vals.shape) != tuple(cols.shape):
-        raise ValueError(f"{name}: cols and vals must both be (W, N), got "
-                         f"{tuple(cols.shape)} and {tuple(vals.shape)}")
-    if cols.dtype != torch.int32:
-        raise TypeError(f"{name}: cols must be int32, got {cols.dtype}")
+def _check_operands(name, vals, indices, vecs) -> None:
+    """`vals` of a kernel's dtype; the index arrays and the vectors on its
+    device, the vectors of its dtype."""
     if vals.dtype not in _SUFFIX:
         raise TypeError(f"{name}: dtype {vals.dtype} not supported "
                         "(float32/float64)")
-    if cols.shape[0] >= 2 ** 31:
-        raise ValueError(f"{name}: width {cols.shape[0]} too large")
     for t in vecs:
         if t.dtype != vals.dtype:
             raise TypeError(f"{name}: operand is {t.dtype}, vals are "
                             f"{vals.dtype}")
-    for t in (cols, *vecs):
+    for t in (*indices, *vecs):
         if t.device != vals.device:
             raise ValueError(f"{name}: operand on {t.device}, vals on "
                              f"{vals.device}")
 
 
 def _check_cuda(name, *tensors) -> None:
-    """What the kernels need beyond `_check`: a CUDA device, contiguity."""
+    """What the kernels need beyond the operand checks: a CUDA device,
+    contiguity."""
     if tensors[0].device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {tensors[0].device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: operands must be contiguous")
 
 
-def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+def _check_rows(name, A: CompressedRows, x, epi) -> None:
+    if A.rowptr.dtype != torch.int32 or A.cols.dtype != torch.int32:
+        raise TypeError(f"{name}: rowptr and cols must be int32")
+    _check_operands(name, A.vals, (A.rowptr, A.cols), (x, *epi))
+    if x.shape != (A.shape[1],) or any(t.shape != (A.shape[0],)
+                                       for t in epi):
+        raise ValueError(f"{name}: x must be ({A.shape[1]},) and b, inv_d "
+                         f"({A.shape[0]},)")
+
+
+def ell_spmv(A: CompressedRows, x: torch.Tensor,
              b: torch.Tensor | None = None,
              inv_d: torch.Tensor | None = None) -> torch.Tensor:
-    """K7: A @ x for slot-major ELL (cols int32 (W, N), vals (W, N)); with
-    `b` and `inv_d` (both (N,)) the sweep inv_d * (b - A x). Kernel on
-    CUDA, plain version on CPU."""
-    N = cols.shape[1] if cols.dim() == 2 else -1
+    """K7: A @ x over compressed rows; with `b` and `inv_d` (both (N,)) the
+    sweep inv_d * (b - A x). Kernel on CUDA, plain version on CPU."""
     if (b is None) != (inv_d is None):
         raise ValueError("ell_spmv: give both b and inv_d, or neither")
     epi = () if b is None else (b, inv_d)
-    _check("ell_spmv", cols, vals, x, *epi)
-    if x.dim() != 1 or any(t.shape != (N,) for t in epi):
-        raise ValueError(f"ell_spmv: x must be 1-D and b, inv_d ({N},)")
+    _check_rows("ell_spmv", A, x, epi)
     if x.device.type == "cpu":
-        return ell_spmv_reference(cols, vals, x, b, inv_d)
-    _check_cuda("ell_spmv", cols, vals, x, *epi)
+        return ell_spmv_reference(A, x, b, inv_d)
+    _check_cuda("ell_spmv", A.rowptr, A.cols, A.vals, x, *epi)
+    N = A.shape[0]
     y = torch.empty(N, dtype=x.dtype, device=x.device)
     if N == 0:
         return y
     _build.launch("sparse_spmv", f"ell_spmv_{_SUFFIX[x.dtype]}", x.device,
-                  cols.data_ptr(), vals.data_ptr(), cols.shape[0], N,
-                  x.data_ptr(), b.data_ptr() if epi else None,
+                  A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
+                  N, A.group, x.data_ptr(), b.data_ptr() if epi else None,
                   inv_d.data_ptr() if epi else None, y.data_ptr())
     LAUNCHES["ell_spmv"] += 1
     return y
 
 
+def ell_sweeps(A: CompressedRows, b: torch.Tensor, inv_d: torch.Tensor,
+               sweeps: int) -> torch.Tensor:
+    """`sweeps` Jacobi sweeps x <- inv_d * (b - A x) from x = inv_d * b,
+    each one K7 launch with its epilogue: the Neumann solve of (D + A) x =
+    b for a strictly triangular A. On CUDA one host call launches them all,
+    and `LAUNCHES` counts every sweep: on an H100 machine the host spends
+    4.4 us a sweep so, 17.7 us with one call a sweep, against 12 us for a
+    sweep of F's n=64 factors on the card (chip_smoke.py's launch_path and
+    ilu_layers phases). On CPU the plain version runs them one by one."""
+    x = inv_d * b
+    _check_rows("ell_sweeps", A, x, (b, inv_d))
+    if x.device.type == "cpu":
+        for _ in range(sweeps):
+            x = ell_spmv_reference(A, x, b, inv_d)
+        return x
+    _check_cuda("ell_sweeps", A.rowptr, A.cols, A.vals, b, inv_d)
+    if sweeps < 1 or A.shape[0] == 0:
+        return x
+    buf = (x, torch.empty_like(x))
+    _build.launch("sparse_spmv", f"ell_sweeps_{_SUFFIX[x.dtype]}", x.device,
+                  A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
+                  A.shape[0], A.group, b.data_ptr(), inv_d.data_ptr(),
+                  buf[0].data_ptr(), buf[1].data_ptr(), sweeps)
+    LAUNCHES["ell_spmv"] += sweeps
+    return buf[sweeps % 2]
+
+
 def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
              X: torch.Tensor) -> torch.Tensor:
-    """K8: A @ X for slot-major ELL and row-major X (ncols, k) -> (N, k).
-    Kernel on CUDA, plain version on CPU."""
-    _check("ell_spmm", cols, vals, X)
+    """K8: A @ X for slot-major ELL (cols int32 (W, N), vals (W, N)) and
+    row-major X (ncols, k) -> (N, k). Kernel on CUDA, plain version on
+    CPU."""
+    if cols.dim() != 2 or tuple(vals.shape) != tuple(cols.shape):
+        raise ValueError(f"ell_spmm: cols and vals must both be (W, N), got "
+                         f"{tuple(cols.shape)} and {tuple(vals.shape)}")
+    if cols.dtype != torch.int32:
+        raise TypeError(f"ell_spmm: cols must be int32, got {cols.dtype}")
+    _check_operands("ell_spmm", vals, (cols,), (X,))
     if X.dim() != 2:
         raise ValueError(f"ell_spmm: X must be (ncols, k), got "
                          f"{tuple(X.shape)}")
@@ -228,7 +349,8 @@ class BandedELL:
         return self.to_ell()
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """A @ x through K7 (plain version on CPU)."""
+        """A @ x through K7 on the compressed rows of `ell` (plain version
+        on CPU)."""
         return self.ell.matvec(x)
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:

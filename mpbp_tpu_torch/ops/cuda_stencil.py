@@ -22,20 +22,22 @@ All four run `models/fused.velocity_block_math` / `multiphase_apply_math`
 term for term, in flux form, from the theta_n cell plane and the two
 pointwise face planes; every other coefficient is recomputed in registers.
 In `csrc/fused_stencil.cu` that arithmetic is one template over the plane
-accessor, so K2, K3 and K4 differ at most by FMA contraction.
+accessor, so K1-K4 differ at most by FMA contraction.
 
 What bounds them: HBM bytes. K1 reads 7 planes (3 theta + 4 state) and
-writes 4; K2-K4 read 8 and write 5. At ~120 flops per point against 88 (K1,
-f64) to 104 (K2, f64) bytes per point, all sit far below the card's
-flop/byte balance. The design answers that the way the TPU kernels did:
-one pass, no coefficient planes streamed, each output written once. In
-K1-K3 the radius-1 neighbour reads (~40 per point) are served by L1/L2,
-since adjacent threads of a 32x8 block share them; K4 serves them from
-shared memory. The TPU's fixed 8-row halo, predicated wrap DMAs and VMEM
-row blocks existed for Mosaic's alignment rules: K1/K2 wrap each read with
-a periodic index, K3 takes any h >= 1, and K4 tiles in 2-D because one
-full f64 row of 6 planes at n=2048 is 98 KB. TMA and wider per-thread
-work are for later.
+writes 4; K2-K4 read 8 and write 5. At ~190-250 operations per point
+against 88 (K1, f64) to 104 (K2, f64) bytes per point, all sit far below
+the card's flop/byte balance. The design answers that the way the TPU
+kernels did: one pass, no coefficient planes streamed, each output written
+once. In K2 and K3 the radius-1 neighbour reads (~40 per point) are served
+by L1/L2, since adjacent threads of a 32x8 block share them; K4 serves
+them from shared memory. K1, the most launched, takes 2 points of a row
+per thread: it wraps rows and columns once per thread (no integer modulo
+per read) and reads each plane as a 3 x 4 register window, its own columns
+by one 8- or 16-byte load. The TPU's fixed 8-row halo, predicated wrap
+DMAs and VMEM row blocks existed for Mosaic's alignment rules: K2 wraps
+each read with a periodic index, K3 takes any h >= 1, and K4 tiles in 2-D
+because one full f64 row of 6 planes at n=2048 is 98 KB.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch the kernel or raise. `LAUNCHES` counts kernel launches only.

@@ -4,7 +4,7 @@
 `best_spmv` picks a kernel for a CSR matrix by structure, once, on the
 host:
   "dia" - K5/K6 (`ops/cuda_dia.py`) when few diagonals carry the matrix;
-  "ell" - K7 (`ops/cuda_ell.py`) on plain ELL with absolute columns
+  "ell" - K7 (`ops/cuda_ell.py`) on the matrix's compressed rows
           otherwise (factors with fill, unstructured rows).
 The JAX package's TPU gates do not come across: N % 128 (the lane
 layout), the VMEM budgets, and the resident/"dia_streamed" split (x outgrew
@@ -21,6 +21,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from mpbp_tpu_torch.ops.cuda_ell import CompressedRows
 from mpbp_tpu_torch.ops.dia import DIAMatrix
 from mpbp_tpu_torch.ops.sparse import CSRMatrix
 
@@ -48,4 +49,5 @@ def best_spmv(csr: CSRMatrix, dtype: torch.dtype = torch.float32
         K = len(np.unique((indices.astype(np.int64) - rows) % ncols))
         if K <= _MAX_DIA and K * nrows <= _DIA_PAD_RATIO * csr.nnz:
             return DIAMatrix.from_csr(csr_c, periodic=True).matvec, "dia"
-    return csr_c.to_ell().matvec, "ell"
+    return CompressedRows.from_arrays(csr.shape, *csr.host_arrays(), dtype,
+                                      device=csr.vals.device).matvec, "ell"

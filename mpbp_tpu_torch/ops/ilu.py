@@ -1,7 +1,7 @@
 """Incomplete-LU preconditioners (port of `mpbp_tpu/ops/ilu.py`): host
-factorization by the native C++ of `mpbp_tpu.native` (the same library and
-the same CSR as the JAX package, so the factors are equal), device apply
-through triangular solves (`ops/trisolve.py`).
+factorization by this package's native C++ (`mpbp_tpu_torch/native`, the
+same C++ and the same CSR as the JAX package, so the factors are equal),
+device apply through triangular solves (`ops/trisolve.py`).
 """
 
 from __future__ import annotations
@@ -11,16 +11,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpbp_tpu import native
+from mpbp_tpu_torch import native
 from mpbp_tpu_torch.ops.sparse import CSRMatrix
 from mpbp_tpu_torch.ops.trisolve import LevelTriSolve, NeumannTriSolve
-
-
-def have_native() -> bool:
-    """Whether the native factorization library loaded (g++ builds it at
-    first use). Without it the factorizations run the JAX package's
-    pure-Python fallback, too slow for full-size grids."""
-    return native.have_native()
 
 
 @dataclasses.dataclass(eq=False)

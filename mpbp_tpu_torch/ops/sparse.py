@@ -6,8 +6,8 @@ numeric payloads (and the column indices) are tensors on an explicit
 device. CSR is the host/setup format: `from_coo` and `host_arrays` are the
 JAX package's numpy code, so a CSR exported here equals the JAX package's
 bit for bit (the native ILUT drops entries by magnitude). ELL is the device
-format: `ELLMatrix.matvec`/`matmat` run kernels K7/K8 (`ops/cuda_ell.py`)
-on a CUDA tensor.
+format: `ELLMatrix.matvec` runs kernel K7 on the matrix's compressed rows
+and `matmat` kernel K8 (`ops/cuda_ell.py`) on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from mpbp_tpu import native
+from mpbp_tpu_torch import native
 from mpbp_tpu_torch.ops import cuda_ell
 
 
@@ -167,11 +167,11 @@ class CSRMatrix:
 @dataclasses.dataclass(eq=False)
 class ELLMatrix:
     """Padded sparse rows with absolute int32 columns, stored slot-major:
-    cols/vals are (width, nrows), the layout kernels K7/K8 read (a warp
-    reads 32 consecutive rows of one slot). Padding has value 0 and an
-    in-range column. The JAX package stores the transpose, (nrows, width).
-    Every ELL operand of the port (`to_ell`, `BandedELL.to_ell`, the
-    Neumann sweep operand of `ops/trisolve.py`) is one of these."""
+    cols/vals are (width, nrows), the layout kernel K8 reads (a warp reads
+    32 consecutive rows of one slot). Padding has value 0 and an in-range
+    column. The JAX package stores the transpose, (nrows, width). Every
+    ELL operand of the port (`to_ell`, `BandedELL.to_ell`) is one of
+    these; K7 reads its nonzero slots as `compressed`, made once."""
 
     shape: tuple[int, int]
     cols: torch.Tensor  # (width, nrows) int32
@@ -185,11 +185,14 @@ class ELLMatrix:
     def nnz(self) -> int:
         return int(torch.count_nonzero(self.vals))
 
-    def matvec(self, x: torch.Tensor, b: torch.Tensor | None = None,
-               inv_d: torch.Tensor | None = None) -> torch.Tensor:
-        """A @ x through kernel K7 (plain version on CPU); with `b` and
-        `inv_d`, the Jacobi sweep inv_d * (b - A x) in the same launch."""
-        return cuda_ell.ell_spmv(self.cols, self.vals, x, b, inv_d)
+    @functools.cached_property
+    def compressed(self) -> cuda_ell.CompressedRows:
+        """K7's operand: the nonzero slots in compressed rows."""
+        return cuda_ell.CompressedRows.from_ell(self)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """A @ x through kernel K7 (plain version on CPU)."""
+        return self.compressed.matvec(x)
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
         """SpMM (m, n) @ (n, k) -> (m, k) through kernel K8 (plain version
@@ -243,28 +246,11 @@ class BSRMatrix:
 
 
 def spgemm_csr(A: CSRMatrix, B: CSRMatrix) -> CSRMatrix:
-    """General CSR x CSR product on the host (setup path): the native C++
-    SpGEMM, or a Python loop where the native library did not build."""
+    """General CSR x CSR product on the host (setup path), by the native
+    C++ SpGEMM."""
     if A.shape[1] != B.shape[0]:
         raise ValueError(f"shape mismatch {A.shape} @ {B.shape}")
-    Ap, Ai, Av = A.host_arrays()
-    Bp, Bi, Bv = B.host_arrays()
-    dev = A.vals.device
-    if native.have_native():
-        rows, cols, vals = native.spgemm(A.shape[0], Ap, Ai, Av, Bp, Bi, Bv)
-        return CSRMatrix.from_coo(A.shape[0], B.shape[1], rows, cols, vals,
-                                  device=dev)
-    rows_out, cols_out, vals_out = [], [], []
-    for r in range(A.shape[0]):
-        acc: dict[int, float] = {}
-        for p in range(Ap[r], Ap[r + 1]):
-            k, av = Ai[p], Av[p]
-            for q in range(Bp[k], Bp[k + 1]):
-                acc[Bi[q]] = acc.get(Bi[q], 0.0) + av * Bv[q]
-        for c, v in acc.items():
-            rows_out.append(r)
-            cols_out.append(c)
-            vals_out.append(v)
-    return CSRMatrix.from_coo(A.shape[0], B.shape[1], np.array(rows_out),
-                              np.array(cols_out),
-                              np.array(vals_out, dtype=Av.dtype), device=dev)
+    rows, cols, vals = native.spgemm(A.shape[0], *A.host_arrays(),
+                                     *B.host_arrays())
+    return CSRMatrix.from_coo(A.shape[0], B.shape[1], rows, cols, vals,
+                              device=A.vals.device)

@@ -9,8 +9,9 @@
   O(n^2) levels, so on the card this apply is bound by launch overhead.
 * `NeumannTriSolve` is the approximate solve by a fixed number of Jacobi
   (truncated Neumann) sweeps x <- D^-1 (b - S x): fully parallel, each
-  sweep ONE launch of the ELL kernel K7 with its epilogue
-  (`ops/cuda_ell.ell_spmv`), in f32 and f64. The JAX package's TPU gate
+  sweep ONE launch of kernel K7 with its epilogue on the strict triangle's
+  compressed rows, all of a solve's sweeps from one host call
+  (`ops/cuda_ell.ell_sweeps`), in f32 and f64. The JAX package's TPU gate
   (f32 and n % 128 == 0 only) does not come across.
 """
 
@@ -22,8 +23,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mpbp_tpu.native import level_schedule
-from mpbp_tpu_torch.ops.sparse import ELLMatrix
+from mpbp_tpu_torch.native import level_schedule
+from mpbp_tpu_torch.ops import cuda_ell
+from mpbp_tpu_torch.ops.cuda_ell import CompressedRows
 
 
 @dataclasses.dataclass(eq=False)
@@ -103,37 +105,14 @@ class LevelTriSolve:
         return x[:n]
 
 
-def strict_ell_from_csr(indptr, indices, vals, n: int,
-                        dtype: torch.dtype = torch.float64, *,
-                        device: torch.device | str) -> ELLMatrix:
-    """The ELL matrix of a strictly-triangular CSR part, padded with
-    self-references carrying value 0: the Neumann sweep operand (the JAX
-    package's (cols, vals) arrays, in the port's slot-major container)."""
-    indptr = np.asarray(indptr, np.int64)
-    counts = np.diff(indptr)
-    K = max(1, int(counts.max()) if n else 1)
-    cols = np.tile(np.arange(n, dtype=np.int32)[None, :], (K, 1))
-    vmat = np.zeros((K, n))
-    r = np.repeat(np.arange(n), counts)
-    slot = np.arange(indptr[-1], dtype=np.int64) - np.repeat(indptr[:-1],
-                                                             counts)
-    cols[slot, r] = np.asarray(indices, np.int32)
-    vmat[slot, r] = np.asarray(vals, np.float64)
-    return ELLMatrix((n, n), torch.tensor(cols, device=device),
-                     torch.tensor(vmat, dtype=dtype, device=device))
-
-
-def neumann_trisolve(strict: ELLMatrix, diag: torch.Tensor, b: torch.Tensor,
-                     sweeps: int) -> torch.Tensor:
+def neumann_trisolve(strict: CompressedRows, diag: torch.Tensor,
+                     b: torch.Tensor, sweeps: int) -> torch.Tensor:
     """Approximate solve of (D + S) x = b by `sweeps` Jacobi sweeps
     x_{k+1} = D^-1 (b - S x_k) from x_0 = D^-1 b, with S strictly
-    triangular in ELL: each sweep is one K7 launch with the epilogue.
-    Exact after n_levels sweeps."""
-    inv_d = 1.0 / diag
-    x = inv_d * b
-    for _ in range(sweeps):
-        x = strict.matvec(x, b=b, inv_d=inv_d)
-    return x
+    triangular: each sweep is one K7 launch with the epilogue, all of them
+    from one host call (`cuda_ell.ell_sweeps`). Exact after n_levels
+    sweeps."""
+    return cuda_ell.ell_sweeps(strict, b, 1.0 / diag, sweeps)
 
 
 @dataclasses.dataclass(eq=False)
@@ -145,8 +124,8 @@ class NeumannTriSolve:
 
     n: int
     sweeps: int
-    strict: ELLMatrix      # the strict triangle, self-reference padded
-    diag: torch.Tensor     # (n,)
+    strict: CompressedRows   # the strict triangle
+    diag: torch.Tensor       # (n,)
 
     @classmethod
     def from_csr(cls, indptr, indices, vals, sweeps: int, diag_vals=None,
@@ -157,8 +136,8 @@ class NeumannTriSolve:
         dv = (np.asarray(diag_vals, np.float64)
               if diag_vals is not None else np.ones(n))
         return cls(n=n, sweeps=sweeps,
-                   strict=strict_ell_from_csr(indptr, indices, vals, n,
-                                              dtype, device=device),
+                   strict=CompressedRows.from_arrays(
+                       (n, n), indptr, indices, vals, dtype, device=device),
                    diag=torch.tensor(dv, dtype=dtype, device=device))
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:

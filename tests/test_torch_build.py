@@ -9,6 +9,7 @@ import torch
 
 from mpbp_tpu_torch.ops import _build, cuda_dia, cuda_ell, cuda_stencil
 from mpbp_tpu_torch.ops.dia import DIAMatrix
+from mpbp_tpu_torch.ops.sparse import ELLMatrix
 
 
 @pytest.fixture
@@ -69,8 +70,9 @@ def test_cpu_tensors_never_build(sources):
     y = A.matvec(torch.ones(3, dtype=torch.float64))
     torch.testing.assert_close(y, torch.full((3,), 3.0, dtype=torch.float64))
     cols = torch.zeros((1, 3), dtype=torch.int32)
-    cuda_ell.ell_spmv(cols, torch.ones((1, 3)), torch.ones(3))
-    cuda_ell.ell_spmm(cols, torch.ones((1, 3)), torch.ones((3, 2)))
+    ell = ELLMatrix((3, 3), cols, torch.ones((1, 3)))
+    ell.matvec(torch.ones(3))
+    ell.matmat(torch.ones((3, 2)))
     assert (dict(cuda_dia.LAUNCHES), dict(cuda_ell.LAUNCHES),
             dict(cuda_stencil.LAUNCHES)) == counts
     assert not (_build._BUILD_DIR).exists()

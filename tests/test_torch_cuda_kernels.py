@@ -9,6 +9,8 @@ also runs where JAX is not installed:
         tests/test_torch_cuda_kernels.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from mpbp_tpu_torch.models.fused import make_fused_apply_kernel
 from mpbp_tpu_torch.models.multiphase import operator_from_numpy
 from mpbp_tpu_torch.ops import cuda_dia, cuda_ell, cuda_stencil
 from mpbp_tpu_torch.ops.dia import DIAMatrix
+from mpbp_tpu_torch.ops.sparse import ELLMatrix
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -123,22 +126,93 @@ def _ell(rng, N, ncols, W, dtype, device):
             torch.as_tensor(vals, dtype=dtype, device=device))
 
 
+def _rows(rng, N, max_row, dtype, device, long_row=0):
+    """Random compressed rows of lengths 0..max_row (a quarter of them
+    empty), row 1 of length `long_row` when given."""
+    lens = rng.integers(0, max_row + 1, size=N)
+    lens[rng.random(N) < 0.25] = 0
+    if long_row and N > 1:
+        lens[1] = long_row
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    cols = rng.integers(0, N, size=indptr[-1])
+    vals = rng.normal(size=indptr[-1])
+    return cuda_ell.CompressedRows.from_arrays((N, N), indptr, cols, vals,
+                                               dtype, device=device)
+
+
+def _misaligned(A):
+    """The same rows with vals and cols 4 bytes past a 16-byte boundary:
+    the kernel's scalar-load path."""
+    def shift(t):
+        buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+        out = buf[1:1 + t.numel()]
+        out.copy_(t)
+        return out
+    return dataclasses.replace(A, cols=shift(A.cols), vals=shift(A.vals))
+
+
 @pytest.mark.parametrize("dtype,bound", BOUNDS)
-@pytest.mark.parametrize("N,W", [(1000, 1), (1000, 7), (1, 3), (4097, 40)])
-def test_ell_spmv_matches_plain(cuda_device, dtype, bound, N, W):
+@pytest.mark.parametrize("N,max_row,long_row", [(1000, 1, 0), (1000, 7, 70),
+                                                (1, 3, 0), (4097, 40, 300),
+                                                (16384, 250, 400)])
+@pytest.mark.parametrize("group", [None, 2, 8, 32])
+def test_ell_spmv_matches_plain(cuda_device, dtype, bound, N, max_row,
+                                long_row, group):
+    """K7 on compressed rows against its plain version, with and without
+    the epilogue, at the operand's own lane group and at forced ones, with
+    empty rows and a row longer than the group; then on misaligned
+    arrays (scalar loads)."""
     rng = np.random.default_rng(2)
-    cols, vals = _ell(rng, N, N, W, dtype, cuda_device)
+    A = _rows(rng, N, max_row, dtype, cuda_device, long_row)
+    if group is not None:
+        A = dataclasses.replace(A, group=group)
     x, b = (torch.as_tensor(rng.normal(size=N), dtype=dtype,
                             device=cuda_device) for _ in range(2))
     inv_d = torch.as_tensor(1.0 + rng.random(N), dtype=dtype,
                             device=cuda_device)
+    for op in (A, _misaligned(A)):
+        before = cuda_ell.LAUNCHES["ell_spmv"]
+        got = cuda_ell.ell_spmv(op, x)
+        got_epi = cuda_ell.ell_spmv(op, x, b=b, inv_d=inv_d)
+        assert cuda_ell.LAUNCHES["ell_spmv"] == before + 2
+        _assert_close(got, cuda_ell.ell_spmv_reference(A, x), bound)
+        _assert_close(got_epi, cuda_ell.ell_spmv_reference(A, x, b, inv_d),
+                      bound)
+
+
+@pytest.mark.parametrize("dtype,bound", BOUNDS)
+@pytest.mark.parametrize("sweeps", [0, 1, 2, 7])
+def test_ell_sweeps_match_one_launch_at_a_time(cuda_device, dtype, bound,
+                                               sweeps):
+    """The Neumann sweeps of one host call against the same sweeps by the
+    plain version, and one count per sweep."""
+    rng = np.random.default_rng(4)
+    A = _rows(rng, 3000, 40, dtype, cuda_device, long_row=200)
+    b = torch.as_tensor(rng.normal(size=3000), dtype=dtype,
+                        device=cuda_device)
+    inv_d = torch.as_tensor(1.0 + rng.random(3000), dtype=dtype,
+                            device=cuda_device)
+    want = inv_d * b
+    for _ in range(sweeps):
+        want = cuda_ell.ell_spmv_reference(A, want, b, inv_d)
     before = cuda_ell.LAUNCHES["ell_spmv"]
-    got = cuda_ell.ell_spmv(cols, vals, x)
-    got_epi = cuda_ell.ell_spmv(cols, vals, x, b=b, inv_d=inv_d)
-    assert cuda_ell.LAUNCHES["ell_spmv"] == before + 2
-    _assert_close(got, cuda_ell.ell_spmv_reference(cols, vals, x), bound)
-    _assert_close(got_epi, cuda_ell.ell_spmv_reference(cols, vals, x, b,
-                                                       inv_d), bound)
+    got = cuda_ell.ell_sweeps(A, b, inv_d, sweeps)
+    assert cuda_ell.LAUNCHES["ell_spmv"] == before + sweeps
+    _assert_close(got, want, bound)
+
+
+def test_ell_matvec_runs_k7_on_its_compressed_rows(cuda_device):
+    """ELLMatrix.matvec (slot-major, padded, an empty row) through K7 on
+    the nonzero slots, against the padded arrays' own sum."""
+    rng = np.random.default_rng(5)
+    cols, vals = _ell(rng, 1000, 1000, 7, torch.float64, cuda_device)
+    ell = ELLMatrix((1000, 1000), cols, vals)
+    x = torch.as_tensor(rng.normal(size=1000), device=cuda_device)
+    before = cuda_ell.LAUNCHES["ell_spmv"]
+    got = ell.matvec(x)
+    assert cuda_ell.LAUNCHES["ell_spmv"] == before + 1
+    assert ell.compressed.nnz == int(torch.count_nonzero(vals))
+    _assert_close(got, (vals * x[cols]).sum(0), 1e-12)
 
 
 @pytest.mark.parametrize("dtype,bound", BOUNDS)
@@ -179,6 +253,35 @@ def _random_operator(n, dtype, device, seed=0):
     x = torch.as_tensor(rng.normal(size=(5, n, n)), dtype=dtype,
                         device=device)
     return op, x
+
+
+def _shifted(t):
+    """A contiguous copy of `t` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype,bound", BOUNDS)
+@pytest.mark.parametrize("n", [1, 8, 50, 512, 1000])
+def test_f_apply_matches_plain_and_k2(cuda_device, dtype, bound, n):
+    """K1 (several points a thread, register windows) against its plain
+    version and against K2's first four outputs on the same state with
+    p = 0, at sizes that are and are not multiples of its points per
+    thread; then on misaligned planes (its scalar-load path)."""
+    op, x = _random_operator(n, dtype, cuda_device, seed=n)
+    x[4] = 0.0
+    planes = (op.phase_n.cell, op.phase_n.xface_pt, op.phase_n.yface_pt)
+    scal = (op.params, op.grid.dx, op.grid.dy)
+    args = (*planes, x[:4].contiguous(), *scal)
+    before = cuda_stencil.LAUNCHES["f_apply"]
+    got = cuda_stencil.f_apply(*args)
+    assert cuda_stencil.LAUNCHES["f_apply"] == before + 1
+    _assert_close(got, cuda_stencil.f_apply_reference(*args), bound)
+    _assert_close(got, cuda_stencil.a_apply(*planes, x, *scal)[:4], bound)
+    shifted = (*(_shifted(t) for t in args[:4]), *scal)
+    _assert_close(cuda_stencil.f_apply(*shifted), got, bound)
 
 
 @pytest.mark.parametrize("dtype,bound", BOUNDS)

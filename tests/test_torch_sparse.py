@@ -4,6 +4,8 @@ the CSR/ELL/BSR/COO matvecs, the plain versions of kernels K5-K8 against
 the Pallas kernels in interpret mode, the Neumann epilogue and
 `best_spmv`'s path names."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -199,10 +201,12 @@ def test_ell_references_match_pallas_interpret(gtg_u_factor, dtype):
     jb = pallas_ell.BandedELL.from_csr(jcsr)
     ell = BandedELL.from_csr(port_csr(jcsr)).to_ell()
     cols, vals = ell.cols, ell.vals
+    rows = ell.compressed
+    assert rows.nnz == strict.nnz and rows.vals.dtype == vals.dtype
     rng = np.random.default_rng(3)
     x = rng.normal(size=strict.shape[0]).astype(dtype)
     X = rng.normal(size=(strict.shape[0], 5)).astype(dtype)
-    got = cuda_ell.ell_spmv_reference(cols, vals, torch.as_tensor(x))
+    got = cuda_ell.ell_spmv_reference(rows, torch.as_tensor(x))
     got_mm = cuda_ell.ell_spmm_reference(cols, vals, torch.as_tensor(X))
     rtol = 1e-5 if dtype == np.float32 else 1e-12
     close(got, jb.matvec(jnp.asarray(x)), rtol)
@@ -214,8 +218,8 @@ def test_ell_references_match_pallas_interpret(gtg_u_factor, dtype):
     else:
         close(got_mm, np.asarray(jcsr.to_dense()) @ X, rtol)
     # the wrappers take the plain versions on CPU tensors
-    torch.testing.assert_close(cuda_ell.ell_spmv(cols, vals,
-                                                 torch.as_tensor(x)), got)
+    torch.testing.assert_close(cuda_ell.ell_spmv(rows, torch.as_tensor(x)),
+                               got)
     torch.testing.assert_close(ell.matmat(torch.as_tensor(X)), got_mm)
 
 
@@ -224,27 +228,30 @@ def test_ell_epilogue_matches_neumann_sweeps(gtg_u_factor):
     n = strict.shape[0]
     rng = np.random.default_rng(4)
     b = rng.normal(size=n)
-    ell = trisolve.strict_ell_from_csr(*strict.host_arrays(), n,
-                                       device="cpu")
-    cols, vals = ell.cols, ell.vals
-    jcols, jvals = jax_trisolve.strict_ell_from_csr(*strict.host_arrays(), n)
-    np.testing.assert_array_equal(cols.numpy().T, np.asarray(jcols))
-    np.testing.assert_array_equal(vals.numpy().T, np.asarray(jvals))
+    rows = cuda_ell.CompressedRows.from_arrays((n, n), *strict.host_arrays(),
+                                               device="cpu")
+    # the JAX package's padded sweep operand holds these entries, row by
+    # row, and zeros
+    jcols, jvals = (np.asarray(a) for a in
+                    jax_trisolve.strict_ell_from_csr(*strict.host_arrays(), n))
+    keep = jvals != 0
+    np.testing.assert_array_equal(keep.sum(1), np.diff(rows.rowptr.numpy()))
+    np.testing.assert_array_equal(jcols[keep], rows.cols.numpy())
+    np.testing.assert_array_equal(jvals[keep], rows.vals.numpy())
     tb, td = torch.as_tensor(b), torch.as_tensor(diag)
     x = torch.as_tensor(rng.normal(size=n))
     inv_d = 1.0 / td
-    one = cuda_ell.ell_spmv(cols, vals, x, b=tb, inv_d=inv_d)
+    one = cuda_ell.ell_spmv(rows, x, b=tb, inv_d=inv_d)
     torch.testing.assert_close(
-        one, inv_d * (tb - cuda_ell.ell_spmv(cols, vals, x)), rtol=0,
-        atol=0)
-    torch.testing.assert_close(ell.matvec(x, b=tb, inv_d=inv_d), one,
+        one, inv_d * (tb - cuda_ell.ell_spmv(rows, x)), rtol=0, atol=0)
+    torch.testing.assert_close(rows.matvec(x), cuda_ell.ell_spmv(rows, x),
                                rtol=0, atol=0)
-    got = trisolve.neumann_trisolve(ell, td, tb, 7)
+    got = trisolve.neumann_trisolve(rows, td, tb, 7)
     want = jax_trisolve.neumann_sweeps_with(
         lambda v: strict.matvec(v), jnp.asarray(diag), jnp.asarray(b), 7)
     close(got, want, 1e-12)
     close(trisolve.neumann_sweeps_with(
-        lambda v: cuda_ell.ell_spmv(cols, vals, v), td, tb, 7), want, 1e-12)
+        lambda v: cuda_ell.ell_spmv(rows, v), td, tb, 7), want, 1e-12)
 
 
 def test_best_spmv_paths_match_jax(jop16, gtg_u_factor):
@@ -276,12 +283,19 @@ def test_wrappers_check_their_operands():
     cols = torch.zeros((2, 4), dtype=torch.int32)
     vals = torch.ones((2, 4), dtype=torch.float64)
     x = torch.ones(4, dtype=torch.float64)
+    rows = cuda_ell.CompressedRows.from_arrays((4, 4), [0, 1, 1, 2, 2],
+                                               [0, 3], [1.0, 2.0],
+                                               device="cpu")
     with pytest.raises(TypeError, match="int32"):
-        cuda_ell.ell_spmv(cols.long(), vals, x)
+        cuda_ell.ell_spmv(dataclasses.replace(rows, cols=rows.cols.long()), x)
     with pytest.raises(TypeError):
-        cuda_ell.ell_spmv(cols, vals, x.float())
+        cuda_ell.ell_spmv(rows, x.float())
     with pytest.raises(ValueError, match="both"):
-        cuda_ell.ell_spmv(cols, vals, x, b=x)
+        cuda_ell.ell_spmv(rows, x, b=x)
+    with pytest.raises(ValueError):
+        cuda_ell.ell_spmv(rows, torch.ones(5, dtype=torch.float64))
+    with pytest.raises(TypeError, match="int32"):
+        cuda_ell.ell_spmm(cols.long(), vals, x[:, None])
     with pytest.raises(ValueError):
         cuda_ell.ell_spmm(cols, vals, x)
     A = DIAMatrix.from_numpy((4, 4), (0, -1), np.ones((2, 4)), device="cpu")
