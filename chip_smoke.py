@@ -17,9 +17,9 @@ yardstick only, the port never calls it.
                at n=512, 2048 against their plain PyTorch versions, f32
                and f64, on random theta in [0.1, 0.9] and a random state
                (numpy seed 0); CUDA events, warm, median of 20 (operands
-               that fit in L2 once more after an L2 flush); at n=512 the
-               operator's F or A as CSR @ x; K1 against K2's velocity rows
-               at p = 0 (max difference, bit-equal or not).
+               that fit in L2 once more after an L2 flush); at n=512 and
+               2048 the operator's F or A as CSR @ x; K1 against K2's
+               velocity rows at p = 0 (max difference, bit-equal or not).
   4. mms     - A-apply MMS L2 error at n=32 through K2 in f64.
   5. slice   - the 512^2, eta_n=100 lsc_mg_full hybrid solve, cold then
                warm, with the kernel launch counts of the warm run.
@@ -65,8 +65,8 @@ yardstick only, the port never calls it.
                1e-4), cold and warm with --halo inkernel, then warm with
                pipelined and extend on the same setup, with the K1-K4
                launches of each run; then solve_multiphase(precision="ir")
-               at n=64, once more with K1's function computed by K2 (the
-               arithmetic of the K1 before the redesign), and the
+               at n=64, once more with K1's function computed by K2 (in
+               f32 K1's own rounding since K2 shares its design), and the
                true-residual monitor at n=16.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -117,8 +117,8 @@ REPLACES = {"f_apply": "mpbp_tpu/ops/pallas_stencil.py:518",
 NF = {"f_apply": 4, "a_apply": 5}
 # kernels phase: K1 at sizes that are no multiple of anything (8, 50, 1000)
 # and at the main path's 512 and 2048; K2 at 512 and 2048; the library
-# call (a cuSPARSE CSR of the operator) at n=512
-K1_N, K2_N, LIBRARY_N = (8, 50, 512, 1000, 2048), (512, 2048), 512
+# call (a cuSPARSE CSR of the operator) at 512 and 2048
+K1_N, K2_N, LIBRARY_N = (8, 50, 512, 1000, 2048), (512, 2048), (512, 2048)
 # error bounds relative to max|plain|: FMA contraction and operation order
 BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}
 # the least time the card could take (bound_ms): bytes over the H100 SXM's
@@ -242,6 +242,36 @@ def csr_of(csr) -> torch.Tensor:
                      csr.indices, csr.vals, csr.shape)
 
 
+def csr_of_stencil(blk) -> torch.Tensor:
+    """The cuSPARSE operand of a stencil block (`ops/stencil`), built on
+    the device: every term's coefficient at its (row, column), the entries
+    `blk.to_csr()` exports, without the host's sort (at n=2048 the A has
+    235 M entries)."""
+    nr, nc = blk.shape_grid
+    npts = nr * nc
+    dev = blk.device
+    r = torch.arange(nr, device=dev)[:, None]
+    c = torch.arange(nc, device=dev)[None, :]
+    in_base = {f: i * npts for i, f in enumerate(blk.in_fields)}
+    rows, cols, vals = [], [], []
+    for oi, of in enumerate(blk.out_fields):
+        for inf in blk.in_fields:
+            for (dr, dc), coef in (blk.terms.get((of, inf)) or {}).items():
+                rows.append(oi * npts + torch.arange(npts, device=dev))
+                cols.append((in_base[inf] + ((r + dr) % nr) * nc
+                             + (c + dc) % nc).reshape(-1))
+                vals.append(coef.expand(nr, nc).reshape(-1))
+    rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    shape = (len(blk.out_fields) * npts, len(blk.in_fields) * npts)
+    key, order = torch.sort(rows * shape[1] + cols)
+    check(bool((key[1:] != key[:-1]).all()),
+          "csr_of_stencil: two terms share an entry")
+    del key
+    crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=shape[0]), 0)
+    return torch_csr(crow, cols[order], vals[order], shape)
+
+
 def csr_of_dia(A: DIAMatrix) -> torch.Tensor:
     """The cuSPARSE operand of a DIA matrix: its nonzeros, under the DIA
     convention (the rows past ncols of a tall matrix are 0)."""
@@ -302,8 +332,8 @@ def phase_build() -> None:
 def phase_kernels(dev) -> dict:
     """K1 (f_apply) at n in K1_N and K2 (a_apply) at n in K2_N against
     their plain versions, f32 and f64, random theta in [0.1, 0.9] and a
-    random state (numpy seed 0); at n=512 also the library call, the
-    operator's F (or A) as CSR @ x. GB/s and the bound count the planes
+    random state (numpy seed 0); at n=512 and 2048 also the library call,
+    the operator's F (or A) as CSR @ x. GB/s and the bound count the planes
     each kernel must move: 3 theta + NF in, NF out."""
     rng = np.random.default_rng(0)
     params = dict(c=1.0, d=-1.0, xi=1.0, eta_n=100.0, eta_s=1.0)
@@ -314,11 +344,11 @@ def phase_kernels(dev) -> dict:
         names = [k for k, sizes in (("f_apply", K1_N), ("a_apply", K2_N))
                  if n in sizes]
         blocks = {}
-        if n == LIBRARY_N:
+        if n in LIBRARY_N:
             op64 = operator_from_numpy(cell, xpt, ypt, params, device=dev,
                                        dtype=torch.float64)
-            blocks = {"f_apply": csr_of(op64.F.to_csr()),
-                      "a_apply": csr_of(op64.A.to_csr())}
+            blocks = {"f_apply": csr_of_stencil(op64.F),
+                      "a_apply": csr_of_stencil(op64.A)}
             del op64
         for dtype in (torch.float32, torch.float64):
             op = operator_from_numpy(cell, xpt, ypt, params, device=dev,
@@ -354,8 +384,9 @@ def phase_kernels(dev) -> dict:
 def k1_by_k2(tn, wnx, wny, x, params: dict, dx: float,
              dy: float) -> torch.Tensor:
     """K1's function computed by K2 on the state with a zero pressure
-    plane: the first four outputs. K2's per-point arithmetic is the
-    template the K1 before the redesign instantiated with 4 planes."""
+    plane: the first four outputs. K1 and K2 are one kernel template over
+    4 or 5 planes; in f32 both take 2 points a thread, so the two agree
+    bit for bit, and in f64 K2 takes 1."""
     x5 = torch.cat((x, torch.zeros_like(x[:1])))
     return cuda_stencil.a_apply(tn, wnx, wny, x5, params, dx, dy)[:4]
 
@@ -506,7 +537,7 @@ def phase_profile(dev) -> None:
         "profile", lambda: solve_multiphase(**window, device=dev),
         {"f32_K1": "f_apply_kernel<float",
          "f64_K1": "f_apply_kernel<double",
-         "f64_K2": "fused_stencil_kernel<double, 5>"}, top=8)
+         "f64_K2": "a_apply_kernel<double"}, top=8)
 
 
 def _compare(kernel: str, label: str, dtype, kern, ref, nbytes: int,
@@ -852,7 +883,7 @@ def phase_ilu_layers(dev) -> dict:
     profile_window("ilu_profile",
                    lambda: solve_multiphase(**window, device=dev),
                    {"ell_spmv_K7": "rows_spmv_kernel",
-                    "a_apply_K2": "fused_stencil_kernel<double, 5>"}, top=6)
+                    "a_apply_K2": "a_apply_kernel<double"}, top=6)
     return cmp
 
 
@@ -997,7 +1028,7 @@ def phase_dia_lsc(dev) -> dict:
     profile_window("dia_profile",
                    lambda: krylov.fgmres(A.matvec, b_vec, tol=1e-8,
                                          maxiter=2, M=M),
-                   {"dia_spmv_K5": "dia_spmv_kernel"}, top=6)
+                   {"dia_spmv_K5": "dia_spmv_tiled_kernel"}, top=6)
     return dict(launches=launches, iters=res.iters, seconds=secs, cmp=cmp)
 
 
@@ -1026,10 +1057,9 @@ def phase_halo_kernels(dev) -> dict:
         cell, xpt, ypt = (rng.uniform(0.1, 0.9, (n, n)) for _ in range(3))
         state = rng.normal(size=(5, n, n))
         a_csr = None
-        if n == LIBRARY_N:
-            a_csr = csr_of(operator_from_numpy(
-                cell, xpt, ypt, params, device=dev,
-                dtype=torch.float64).A.to_csr())
+        if n == LIBRARY_N[0]:
+            a_csr = csr_of_stencil(operator_from_numpy(
+                cell, xpt, ypt, params, device=dev, dtype=torch.float64).A)
         for dtype in (torch.float32, torch.float64):
             tag = "f32" if dtype == torch.float32 else "f64"
             op = operator_from_numpy(cell, xpt, ypt, params, device=dev,
@@ -1182,8 +1212,8 @@ def phase_ir_slice(dev) -> dict:
           "ir n=64 did not converge to 1e-8")
     check(abs(l2 - IR_N64_L2) <= 0.01 * IR_N64_L2,
           f"ir n=64 L2 {l2:.6e} not within 1% of {IR_N64_L2}")
-    # the same solve with K1 replaced by k1_by_k2: how far K1's f32
-    # rounding alone moves the inner count
+    # the same solve with K1 replaced by k1_by_k2: the f32 inner count
+    # follows K1's rounding, and K2 in f32 rounds as K1 does
     k1 = cuda_stencil.f_apply
     drivers._SETUP_CACHE.clear()
     cuda_stencil.f_apply = k1_by_k2

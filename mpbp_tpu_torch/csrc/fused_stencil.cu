@@ -14,8 +14,7 @@
 // mpbp_tpu/models/fused.py writes it (flux form: differences first, then
 // scale; Ts = 1 - Tn taken at each neighbour), and templated over the plane
 // accessor that serves a neighbour read at (dr, dc), |dr|, |dc| <= 1:
-//   WinPlane   register window of a thread's points, wrapped once (K1)
-//   Plane      global plane, rows and columns wrap periodically (K2)
+//   WinPlane   register window of a thread's points, wrapped once (K1, K2)
 //   BandPlane  global extended-row band: no row wrap, columns wrap (K3)
 //   TilePlane  shared-memory footprint of one tile (K4)
 // So K1-K4 run the same expressions and differ at most by the compiler's
@@ -23,19 +22,20 @@
 //
 // Bound: HBM bytes. K1 reads 7 planes and writes 4, K2-K4 read 8 and write
 // 5; ~190-250 operations per point are far below the card's flop/byte
-// balance. One pass, no coefficient planes, each output written once. K2
-// and K3 take one point per thread and share the ~40 neighbour reads per
-// point between the threads of a 32x8 block through L1/L2. K1 (the most
-// launched kernel: the inner matvec and every velocity-MG level) takes 2
-// consecutive points of a row per thread: it wraps its neighbour rows and
-// columns once per thread, by a compare and add (where Plane pays two
-// integer % per read), and reads theta and the 4 state planes as 3 x 4
-// register windows (WinPlane), with one 8- or 16-byte load for the two
-// points' own columns of each row and one store per output plane. K4
-// stages each 2-D tile's (TR+2) x (TC+2) footprint of theta and the 5
-// state planes in shared memory with cp.async, double-buffered: a
-// persistent CTA starts the copies of its next tile before it computes
-// the current one.
+// balance. One pass, no coefficient planes, each output written once. K1
+// (the most launched kernel: the inner matvec and every velocity-MG level)
+// and K2 (the outer matvec, the ir inner matvec) are one kernel,
+// window_apply, over NF = 4 or 5 planes: P consecutive points of a row a
+// thread, the neighbour rows and columns wrapped once per thread by a
+// compare and add (a per-read wrap would pay two integer % on each of ~40
+// reads a point), theta and the NF state planes read as 3 x (P+2)
+// register windows (WinPlane), with one 8- or 16-byte load for two points'
+// own columns of each row and one store per output plane. K3 takes one
+// point per thread and shares the neighbour reads between the threads of
+// a 32x8 block through L1/L2. K4 stages each 2-D tile's (TR+2) x (TC+2)
+// footprint of theta and the 5 state planes in shared memory with
+// cp.async, double-buffered: a persistent CTA starts the copies of its
+// next tile before it computes the current one.
 //
 // Inputs: theta_n (n, n), pointwise face planes Wnx, Wny (n, n), state
 // (NF, n, n) = [un, vn, us, vs(, p)]; output (NF, n, n). K3 takes theta
@@ -78,18 +78,6 @@ Coefs<T> make_coefs(double c, double d, double xi, double eta_n,
   k.dy = T(dy);
   return k;
 }
-
-// K2: one (n, n) plane, read at (r+dr, c+dc) with periodic wrap.
-template <typename T>
-struct Plane {
-  const T* __restrict__ p;
-  int n, r, c;
-  __device__ __forceinline__ T operator()(int dr, int dc) const {
-    const int rr = (r + dr + n) % n;
-    const int cc = (c + dc + n) % n;
-    return __ldg(p + static_cast<size_t>(rr) * n + cc);
-  }
-};
 
 // K3: one (n_loc+2h, n) extended plane; re = r + h is the point's extended
 // row. Rows never wrap (the halo rows are whatever the caller put there);
@@ -257,28 +245,6 @@ __device__ __forceinline__ void point_apply(
   }
 }
 
-// K2 (NF = 5): one thread per point of the periodic grid.
-template <typename T, int NF>
-__global__ void __launch_bounds__(256)
-fused_stencil_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
-                     const T* __restrict__ wny, const T* __restrict__ x,
-                     T* __restrict__ out, int n, Coefs<T> k) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= n || c >= n) return;
-  const size_t plane = static_cast<size_t>(n) * n;
-  const size_t at = static_cast<size_t>(r) * n + c;
-
-  const Plane<T> un{x, n, r, c}, vn{x + plane, n, r, c};
-  const Plane<T> us{x + 2 * plane, n, r, c}, vs{x + 3 * plane, n, r, c};
-  const Plane<T> pr{NF == 5 ? x + 4 * plane : x, n, r, c};
-  T o[NF];
-  point_apply<T, NF>(Plane<T>{tn, n, r, c}, un, vn, us, vs, pr,
-                     __ldg(wnx + at), __ldg(wny + at), k, o);
-#pragma unroll
-  for (int f = 0; f < NF; ++f) out[f * plane + at] = o[f];
-}
-
 // The P points c0..c0+P-1 of one row: kVec loads them with one vector
 // access (n % P == 0 and 16-byte aligned planes), else point by point at
 // the wrapped columns cc[1..P].
@@ -313,17 +279,20 @@ __device__ __forceinline__ void load_window(const T* __restrict__ p,
   }
 }
 
-// K1 (NF = 4): each thread computes P consecutive points c0 .. c0+P-1 of
-// row r. The wrapped rows and columns are computed once per thread, by a
-// compare and add; theta and the 4 state planes are read as 3 x (P+2)
-// register windows, so a value is loaded about 3(P+2)/P times, not 9; with
-// kVec the points' own columns go by one 8- or 16-byte load per row and
-// the outputs by one store per plane. point_apply is K2-K4's arithmetic.
-template <typename T, int P, bool kVec>
-__global__ void __launch_bounds__(256)
-f_apply_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
-               const T* __restrict__ wny, const T* __restrict__ x,
-               T* __restrict__ out, int n, Coefs<T> k) {
+// K1 (NF = 4) and K2 (NF = 5): each thread computes P consecutive points
+// c0 .. c0+P-1 of row r. The wrapped rows and columns are computed once
+// per thread, by a compare and add; theta and the NF state planes are read
+// as 3 x (P+2) register windows, so a value is loaded about 3(P+2)/P
+// times, not 9; with kVec the points' own columns go by one 8- or 16-byte
+// load per row (P = 2) and the outputs by one store per plane. Of the
+// pressure window (NF = 5) phase_momentum reads only p(0,0), p(0,-1) and
+// p(-1,0); the compiler drops the other loads. point_apply is K3's and
+// K4's arithmetic.
+template <typename T, int NF, int P, bool kVec>
+__device__ __forceinline__ void window_apply(
+    const T* __restrict__ tn, const T* __restrict__ wnx,
+    const T* __restrict__ wny, const T* __restrict__ x, T* __restrict__ out,
+    int n, const Coefs<T>& k) {
   const int c0 = (blockIdx.x * blockDim.x + threadIdx.x) * P;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= n || c0 >= n) return;
@@ -338,27 +307,31 @@ f_apply_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
     cc[q] = c < 0 ? c + n : (c < n ? c : c % n);
   }
   T th[3][P + 2], un[3][P + 2], vn[3][P + 2], us[3][P + 2], vs[3][P + 2];
+  T pr[3][P + 2];
   load_window<T, P, kVec>(tn, rows, c0, cc, th);
   load_window<T, P, kVec>(x, rows, c0, cc, un);
   load_window<T, P, kVec>(x + plane, rows, c0, cc, vn);
   load_window<T, P, kVec>(x + 2 * plane, rows, c0, cc, us);
   load_window<T, P, kVec>(x + 3 * plane, rows, c0, cc, vs);
+  if constexpr (NF == 5)
+    load_window<T, P, kVec>(x + 4 * plane, rows, c0, cc, pr);
   T wx[P], wy[P];
   load_points<T, P, kVec>(wnx + rows[1], c0, cc, wx);
   load_points<T, P, kVec>(wny + rows[1], c0, cc, wy);
-  T o[4][P];
+  T o[NF][P];
 #pragma unroll
   for (int j = 0; j < P; ++j) {
-    const WinPlane<T, P> pu{un, j};
-    T oj[4];
-    point_apply<T, 4>(WinPlane<T, P>{th, j}, pu, WinPlane<T, P>{vn, j},
-                      WinPlane<T, P>{us, j}, WinPlane<T, P>{vs, j}, pu,
-                      wx[j], wy[j], k, oj);
+    T oj[NF];
+    point_apply<T, NF>(WinPlane<T, P>{th, j}, WinPlane<T, P>{un, j},
+                       WinPlane<T, P>{vn, j}, WinPlane<T, P>{us, j},
+                       WinPlane<T, P>{vs, j},
+                       WinPlane<T, P>{NF == 5 ? pr : un, j}, wx[j], wy[j],
+                       k, oj);
 #pragma unroll
-    for (int f = 0; f < 4; ++f) o[f][j] = oj[f];
+    for (int f = 0; f < NF; ++f) o[f][j] = oj[f];
   }
 #pragma unroll
-  for (int f = 0; f < 4; ++f) {
+  for (int f = 0; f < NF; ++f) {
     T* dst = out + f * plane + rows[1];
     if constexpr (kVec) {
       RowVec<T, P>::store(dst + c0, o[f]);
@@ -368,6 +341,26 @@ f_apply_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
         if (c0 + j < n) dst[c0 + j] = o[f][j];
     }
   }
+}
+
+#define WINDOW_PARAMS                                                       \
+  const T *__restrict__ tn, const T *__restrict__ wnx,                     \
+      const T *__restrict__ wny, const T *__restrict__ x,                  \
+      T *__restrict__ out, int n, Coefs<T> k
+
+// K1.
+template <typename T, int P, bool kVec>
+__global__ void __launch_bounds__(256) f_apply_kernel(WINDOW_PARAMS) {
+  window_apply<T, 4, P, kVec>(tn, wnx, wny, x, out, n, k);
+}
+
+// K2. A minimum of one block an SM lets ptxas give it more registers than
+// its default does (f64: 122 against 80), which ran faster on the H100
+// (f64 at n=2048 168 against 190 us; f32 82 against 88), with the same
+// results bit for bit.
+template <typename T, int P, bool kVec>
+__global__ void __launch_bounds__(256, 1) a_apply_kernel(WINDOW_PARAMS) {
+  window_apply<T, 5, P, kVec>(tn, wnx, wny, x, out, n, k);
 }
 
 // K3: one thread per point of an (n_loc, n) band; band row r reads
@@ -480,46 +473,35 @@ staged_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
   }
 }
 
+// K3's block: 32 columns by 8 rows.
 const dim3 kBlock(32, 8);
-
-template <typename T, int NF>
-int launch(const T* tn, const T* wnx, const T* wny, const T* x, T* out,
-           int n, const Coefs<T>& k, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kBlock.x - 1) / kBlock.x, (n + kBlock.y - 1) / kBlock.y);
-  fused_stencil_kernel<T, NF><<<grid, kBlock, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      tn, wnx, wny, x, out, n, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K1's points per thread: 2, one 8-byte (f32) or 16-byte (f64) access.
-// On the H100, 2 points a thread ran faster than 1 or 4 at every n >= 512,
-// f32 and f64.
-constexpr int kPoints = 2;
 
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T, int P>
-int launch_f(const T* tn, const T* wnx, const T* wny, const T* x, T* out,
-             int n, const Coefs<T>& k, void* stream) {
+// K1 (NF = 4) or K2 (NF = 5), P points a thread in blocks of 32 x BY
+// threads (see the entry points); kVec where n % P == 0 and every plane is
+// 16-byte aligned.
+template <typename T, int NF, int P, int BY>
+int launch_window(const T* tn, const T* wnx, const T* wny, const T* x,
+                  T* out, int n, const Coefs<T>& k, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const int groups = (n + P - 1) / P;
-  const dim3 grid((groups + kBlock.x - 1) / kBlock.x,
-                  (n + kBlock.y - 1) / kBlock.y);
-  if constexpr (P > 1) {
-    if (n % P == 0 && aligned16(tn) && aligned16(wnx) && aligned16(wny)
-        && aligned16(x) && aligned16(out)) {
-      f_apply_kernel<T, P, true><<<grid, kBlock, 0, s>>>(tn, wnx, wny, x,
-                                                          out, n, k);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
-  f_apply_kernel<T, P, false><<<grid, kBlock, 0, s>>>(tn, wnx, wny, x, out,
-                                                       n, k);
+  const dim3 block(32, BY);
+  const dim3 grid((groups + block.x - 1) / block.x,
+                  (n + block.y - 1) / block.y);
+  const bool vec = P > 1 && n % P == 0 && aligned16(tn) && aligned16(wnx)
+                   && aligned16(wny) && aligned16(x) && aligned16(out);
+  constexpr bool kVec = P > 1;
+  auto* kernel = [vec] {
+    if constexpr (NF == 4)
+      return vec ? &f_apply_kernel<T, P, kVec> : &f_apply_kernel<T, P, false>;
+    else
+      return vec ? &a_apply_kernel<T, P, kVec> : &a_apply_kernel<T, P, false>;
+  }();
+  kernel<<<grid, block, 0, s>>>(tn, wnx, wny, x, out, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -582,12 +564,6 @@ int launch_staged(const T* tn, const T* wnx, const T* wny, const T* x,
 #define COEF_ARGS(T) \
   make_coefs<T>(c, d, xi, eta_n, eta_s, d_p, d_div, dx, dy)
 
-#define FUSED_STENCIL_ENTRY(NAME, T, NF)                                    \
-  extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
-                      T* out, int n, COEF_PARAMS, void* stream) {           \
-    return launch<T, NF>(tn, wnx, wny, x, out, n, COEF_ARGS(T), stream);    \
-  }
-
 #define BAND_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const T* tn_ext, const T* wnx, const T* wny,          \
                       const T* x_ext, T* out, int n_loc, int n, int h,      \
@@ -604,17 +580,21 @@ int launch_staged(const T* tn, const T* wnx, const T* wny, const T* x,
                             stream);                                        \
   }
 
-#define F_APPLY_ENTRY(NAME, T)                                              \
+#define WINDOW_ENTRY(NAME, T, NF, P, BY)                                    \
   extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
                       T* out, int n, COEF_PARAMS, void* stream) {           \
-    return launch_f<T, kPoints>(tn, wnx, wny, x, out, n, COEF_ARGS(T),      \
-                                stream);                                    \
+    return launch_window<T, NF, P, BY>(tn, wnx, wny, x, out, n,             \
+                                       COEF_ARGS(T), stream);               \
   }
 
-F_APPLY_ENTRY(f_apply_f32, float)
-F_APPLY_ENTRY(f_apply_f64, double)
-FUSED_STENCIL_ENTRY(a_apply_f32, float, 5)
-FUSED_STENCIL_ENTRY(a_apply_f64, double, 5)
+// Points a thread and block rows, from times on the H100 (32 x 8 and 32 x
+// 4 blocks; 1 and 2 points): K1 2 points in 32 x 8 blocks, f32 and f64;
+// K2 2 points (f32) or 1 point (f64) in 32 x 4 blocks. K2 f64 at 2 points
+// takes 158 registers, which leaves one block of 256 threads an SM.
+WINDOW_ENTRY(f_apply_f32, float, 4, 2, 8)
+WINDOW_ENTRY(f_apply_f64, double, 4, 2, 8)
+WINDOW_ENTRY(a_apply_f32, float, 5, 2, 4)
+WINDOW_ENTRY(a_apply_f64, double, 5, 1, 4)
 BAND_ENTRY(a_apply_band_f32, float)
 BAND_ENTRY(a_apply_band_f64, double)
 STAGED_ENTRY(a_apply_staged_f32, float)

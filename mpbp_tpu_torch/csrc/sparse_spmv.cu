@@ -9,11 +9,14 @@
 //
 // What bounds them: device-memory bytes. Each nonzero is used once, for one
 // multiply-add, against 8-12 bytes of matrix payload (value, plus a 4-byte
-// column for ELL and compressed rows). DIA data is (K, nrows) and ELL data
-// slot-major (W, nrows), so the 32 threads of a warp, one row each, read 32
-// consecutive entries of one diagonal or slot. The x reads of a DIA
-// diagonal are contiguous too; x is re-read once per diagonal or slot, and
-// L2 (50 MB) serves the re-reads.
+// column for ELL and compressed rows). The DIA SpMV streams row tiles:
+// each tile of 128 rows keeps only the diagonals with a nonzero in it
+// (the multiphase A has 35 diagonals and 11.2 nonzeros a row; its tiles
+// stream 1.07 values a nonzero at n=512, where all 35 diagonals streamed
+// 3.1), each tile-diagonal's values contiguous, so the 32 threads of a
+// warp, one row each, read 32 consecutive values; its x reads are
+// contiguous too, and L2 (50 MB) serves x's re-reads. The ELL SpMM's data
+// is slot-major (W, nrows), read the same way.
 //
 // K7 reads only the real entries, in compressed rows (int32 row pointers,
 // columns and values): its bound is the bytes of the real entries, which a
@@ -29,9 +32,10 @@
 //
 // The TPU kernels' machinery stays behind: the doubled x that avoided a
 // modulo, the 128-lane band/residue encoding, the streamed VMEM windows
-// (K6 exists only because x outgrew VMEM; here K5 and K6 are one kernel)
-// and the one-hot MXU contraction of the SpMM. Columns are absolute int32
-// indices; DIA offsets arrive normalised to [0, ncols).
+// (K6 exists only because x outgrew VMEM; here K5 and K6 are one kernel,
+// whose row tiles drop the diagonals' zero segments instead) and the
+// one-hot MXU contraction of the SpMM. Columns are absolute int32 indices;
+// DIA offsets arrive normalised to [0, ncols).
 //
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError() as an int.
@@ -48,22 +52,36 @@ inline unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-// y[i] = sum_k data[k, i] * x[(i + off_k) mod ncols] for i < ncols, and 0
-// for the rows i >= ncols of a tall matrix (the convention of
-// mpbp_tpu/ops/dia.py DIAMatrix.matvec). off_k is in [0, ncols).
+// Row-tile DIA. Tile t holds rows [t*rows, (t+1)*rows) and keeps only the
+// diagonals with a nonzero among its rows below ncols, in the matrix's
+// diagonal order: segments s in [tile_ptr[t], tile_ptr[t+1]), each with
+// its offset offs[s] in [0, ncols) and its values vals[s*rows ...
+// (s+1)*rows) (zero at rows >= min(nrows, ncols)). One block a tile, one
+// row a thread:
+//   y[i] = sum_s vals[s, i - t*rows] * x[(i + offs[s]) mod ncols]
+// for i < ncols, in segment order, and 0 for the rows i >= ncols of a
+// tall matrix. The sum skips only diagonals whose values are all zero in
+// the tile, and fma(0, x, acc) == acc for finite x: the result is that of
+// the sum over every diagonal at every row.
 template <typename T>
-__global__ void dia_spmv_kernel(const T* __restrict__ data,
-                                const int64_t* __restrict__ offsets, int K,
-                                int64_t nrows, int64_t ncols,
-                                const T* __restrict__ x, T* __restrict__ y) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+__global__ void __launch_bounds__(1024)
+dia_spmv_tiled_kernel(const int32_t* __restrict__ tile_ptr,
+                      const int32_t* __restrict__ offs,
+                      const T* __restrict__ vals, int rows, int64_t nrows,
+                      int64_t ncols, const T* __restrict__ x,
+                      T* __restrict__ y) {
+  const int64_t t = blockIdx.x;
+  const int r = threadIdx.x;
+  const int64_t i = t * rows + r;
   if (i >= nrows) return;
   T acc = T(0);
   if (i < ncols) {
-    for (int k = 0; k < K; ++k) {
-      int64_t j = i + offsets[k];
+    const int s1 = __ldg(tile_ptr + t + 1);
+#pragma unroll 4
+    for (int s = __ldg(tile_ptr + t); s < s1; ++s) {
+      int64_t j = i + __ldg(offs + s);
       if (j >= ncols) j -= ncols;
-      acc += data[k * nrows + i] * x[j];
+      acc += __ldg(vals + static_cast<int64_t>(s) * rows + r) * __ldg(x + j);
     }
   }
   y[i] = acc;
@@ -163,11 +181,17 @@ __global__ void ell_spmm_kernel(const int32_t* __restrict__ cols,
 }
 
 template <typename T>
-int dia_spmv(const void* data, const void* offsets, int K, int64_t nrows,
-             int64_t ncols, const void* x, void* y, void* stream) {
-  dia_spmv_kernel<T><<<blocks_for(nrows), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const int64_t*>(offsets), K,
+int dia_spmv_tiles(const void* tile_ptr, const void* offs, const void* vals,
+                   int rows, int64_t nrows, int64_t ncols, const void* x,
+                   void* y, void* stream) {
+  if (rows < 1 || rows > 1024 || (rows & (rows - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nrows == 0) return 0;
+  const int64_t ntiles = (nrows + rows - 1) / rows;
+  dia_spmv_tiled_kernel<T><<<static_cast<unsigned>(ntiles), rows, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(tile_ptr),
+      static_cast<const int32_t*>(offs), static_cast<const T*>(vals), rows,
       nrows, ncols, static_cast<const T*>(x), static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
@@ -256,14 +280,18 @@ int ell_spmm(const void* cols, const void* vals, int W, int64_t nrows,
 
 extern "C" {
 
-int dia_spmv_f32(const void* data, const void* offsets, int K, int64_t nrows,
-                 int64_t ncols, const void* x, void* y, void* stream) {
-  return dia_spmv<float>(data, offsets, K, nrows, ncols, x, y, stream);
+int dia_spmv_f32(const void* tile_ptr, const void* offs, const void* vals,
+                 int rows, int64_t nrows, int64_t ncols, const void* x,
+                 void* y, void* stream) {
+  return dia_spmv_tiles<float>(tile_ptr, offs, vals, rows, nrows, ncols, x,
+                               y, stream);
 }
 
-int dia_spmv_f64(const void* data, const void* offsets, int K, int64_t nrows,
-                 int64_t ncols, const void* x, void* y, void* stream) {
-  return dia_spmv<double>(data, offsets, K, nrows, ncols, x, y, stream);
+int dia_spmv_f64(const void* tile_ptr, const void* offs, const void* vals,
+                 int rows, int64_t nrows, int64_t ncols, const void* x,
+                 void* y, void* stream) {
+  return dia_spmv_tiles<double>(tile_ptr, offs, vals, rows, nrows, ncols, x,
+                                y, stream);
 }
 
 int ell_spmv_f32(const void* rowptr, const void* cols, const void* vals,

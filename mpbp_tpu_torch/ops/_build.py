@@ -39,8 +39,9 @@ _STENCIL_ARGS = [_P] * 5 + [_I32] + [_F64] * 9 + [_P]
 # K3: tn_ext, wnx, wny, x_ext, out, n_loc, n, h, <the 9 scalars>, stream;
 # K4: tn, wnx, wny, x, out, n, tile_rows, tile_cols, <the 9 scalars>, stream
 _STENCIL3_ARGS = [_P] * 5 + [_I32] * 3 + [_F64] * 9 + [_P]
-# dia_spmv: data, offsets, K, nrows, ncols, x, y, stream
-_DIA_ARGS = [_P, _P, _I32, _I64, _I64, _P, _P, _P]
+# dia_spmv: tile_ptr, offsets, values, rows a tile, nrows, ncols, x, y,
+# stream
+_DIA_ARGS = [_P, _P, _P, _I32, _I64, _I64, _P, _P, _P]
 # ell_spmv: rowptr, cols, vals, nrows, group, x, b, inv_d, y, stream
 _ELL_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P]
 # ell_sweeps: rowptr, cols, vals, nrows, group, b, inv_d, buf0, buf1,

@@ -29,15 +29,17 @@ writes 4; K2-K4 read 8 and write 5. At ~190-250 operations per point
 against 88 (K1, f64) to 104 (K2, f64) bytes per point, all sit far below
 the card's flop/byte balance. The design answers that the way the TPU
 kernels did: one pass, no coefficient planes streamed, each output written
-once. In K2 and K3 the radius-1 neighbour reads (~40 per point) are served
-by L1/L2, since adjacent threads of a 32x8 block share them; K4 serves
-them from shared memory. K1, the most launched, takes 2 points of a row
-per thread: it wraps rows and columns once per thread (no integer modulo
-per read) and reads each plane as a 3 x 4 register window, its own columns
-by one 8- or 16-byte load. The TPU's fixed 8-row halo, predicated wrap
-DMAs and VMEM row blocks existed for Mosaic's alignment rules: K2 wraps
-each read with a periodic index, K3 takes any h >= 1, and K4 tiles in 2-D
-because one full f64 row of 6 planes at n=2048 is 98 KB.
+once. K1, the most launched, and K2 are one kernel over 4 or 5 planes: a
+thread takes P points of a row (K1 2; K2 2 in f32, 1 in f64, where 2
+points cost 158 registers), wraps rows and columns once (no integer
+modulo per read) and reads each plane as a 3 x (P+2) register window, two
+points' own columns by one 8- or 16-byte load. In K3 the radius-1
+neighbour reads (~40 per point) are served by L1/L2, since adjacent
+threads of a 32x8 block share them; K4 serves them from shared memory.
+The TPU's fixed 8-row halo, predicated wrap DMAs and VMEM row blocks
+existed for Mosaic's alignment rules: K1/K2 wrap once per thread, K3
+takes any h >= 1, and K4 tiles in 2-D because one full f64 row of 6
+planes at n=2048 is 98 KB.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch the kernel or raise. `LAUNCHES` counts kernel launches only.

@@ -3,7 +3,8 @@
 Stencil-born matrices have all nonzeros on O(1) fixed diagonals, the flat
 index offsets of their stencil taps. Stored by diagonal, SpMV needs no
 column indices: `matvec` is kernel K5/K6 (`ops/cuda_dia.py`) on a CUDA
-tensor and its `torch.roll` form on a CPU tensor.
+tensor, on the matrix's row tiles (`tiles`), and its `torch.roll` form on
+a CPU tensor.
 
 Convention: data[k, i] = A[i, (i + offsets[k]) mod ncols]. Offsets are
 col - row, taken mod ncols (periodic) or signed (non-periodic, which gives
@@ -40,6 +41,12 @@ class DIAMatrix:
         ncols = max(self.shape[1], 1)
         return torch.tensor([o % ncols for o in self.offsets],
                             dtype=torch.int64, device=self.data.device)
+
+    @functools.cached_property
+    def tiles(self) -> cuda_dia.DIATiles:
+        """The row-tile layout the kernel runs on (`cuda_dia.dia_tiles`),
+        built once on the data's device; the data must not change after."""
+        return cuda_dia.dia_tiles(self)
 
     @classmethod
     def from_csr(cls, csr, periodic: bool = False) -> "DIAMatrix":

@@ -90,11 +90,14 @@ def _assert_close(got, want, bound):
     assert float((got - want).abs().max()) <= bound * scale
 
 
-# (nrows, ncols, offsets): N not a multiple of 128, N = 1, signed
-# (negative) offsets on tall and wide rectangular shapes, no diagonals
+# (nrows, ncols, offsets): N not a multiple of the 128-row tile, N = 1,
+# signed (negative) offsets on tall and wide rectangular shapes, no
+# diagonals, and a tall matrix whose ncols = 300 falls inside the tile of
+# rows 256..383 (rows below and past ncols in one tile)
 DIA_SHAPES = [(1000, 1000, (0, 1, -1, 37, -37, 999)), (1, 1, (0,)),
               (1000, 250, (-900, -3, 0, 2, 249)),
-              (250, 1000, (-5, 0, 1, 250, 750)), (77, 77, ())]
+              (250, 1000, (-5, 0, 1, 250, 750)), (77, 77, ()),
+              (700, 300, (-650, -299, -1, 0, 1, 299))]
 
 
 @pytest.mark.parametrize("dtype,bound", BOUNDS)
@@ -112,6 +115,9 @@ def test_dia_spmv_matches_plain(cuda_device, dtype, bound, nrows, ncols,
     got = cuda_dia.dia_spmv(A, x)
     assert cuda_dia.LAUNCHES["dia_spmv"] == before + 1
     _assert_close(got, cuda_dia.dia_spmv_reference(A, x), bound)
+    # the row tiles as built on the card, summed by their plain version
+    assert A.tiles.values.device == x.device
+    _assert_close(got, cuda_dia.dia_tiled_reference(A.tiles, x), bound)
 
 
 def _ell(rng, N, ncols, W, dtype, device):
@@ -282,6 +288,24 @@ def test_f_apply_matches_plain_and_k2(cuda_device, dtype, bound, n):
     _assert_close(got, cuda_stencil.a_apply(*planes, x, *scal)[:4], bound)
     shifted = (*(_shifted(t) for t in args[:4]), *scal)
     _assert_close(cuda_stencil.f_apply(*shifted), got, bound)
+
+
+@pytest.mark.parametrize("dtype,bound", BOUNDS)
+@pytest.mark.parametrize("n", [1, 50, 51, 512, 1000])
+def test_a_apply_matches_plain(cuda_device, dtype, bound, n):
+    """K2 (register windows, several points a thread) against its plain
+    version at sizes that are (50, 512, 1000) and are not (1, 51) multiples
+    of its points per thread, then on misaligned planes (its scalar-load
+    path)."""
+    op, x = _random_operator(n, dtype, cuda_device, seed=n + 1)
+    args = (op.phase_n.cell, op.phase_n.xface_pt, op.phase_n.yface_pt, x,
+            op.params, op.grid.dx, op.grid.dy)
+    before = cuda_stencil.LAUNCHES["a_apply"]
+    got = cuda_stencil.a_apply(*args)
+    assert cuda_stencil.LAUNCHES["a_apply"] == before + 1
+    _assert_close(got, cuda_stencil.a_apply_reference(*args), bound)
+    shifted = (*(_shifted(t) for t in args[:4]), *args[4:])
+    _assert_close(cuda_stencil.a_apply(*shifted), got, bound)
 
 
 @pytest.mark.parametrize("dtype,bound", BOUNDS)
