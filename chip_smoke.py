@@ -52,11 +52,12 @@ yardstick only, the port never calls it.
                their plain versions, f32 and f64: K3 on a real band (64
                rows of a random n=512 grid with h=8 neighbour rows, not
                periodic within the band) and on the row-extended state
-               (h=1) at n=512 and 2048, with the whole `extend` apply (the
-               torch.cat copy included) timed beside it; K4 at n=512, 2048
-               and 1000 (no multiple of any tile). Each also against K2 on
-               the same state: max difference and whether bit-equal. Times
-               and GB/s tagged L2 or HBM.
+               (h=1) at n=512, 1000 (no multiple of any tile) and 2048,
+               with the whole `extend` apply (the torch.cat copy included)
+               timed beside it; K4 at the same sizes with its default
+               tile. Each also against K2 on the same state: max
+               difference and whether bit-equal. Times and GB/s tagged L2
+               or HBM.
  13. bench  - the A-apply race of `python -m mpbp_tpu_torch.bench` (K2, K3
                extend, K4 at three tiles, plain PyTorch; CUDA-graph and
                eager marginal times), its JSON line and the winner.
@@ -153,13 +154,16 @@ SPARSE_DIA_N, SPARSE_ELL_N, SPARSE_K = (512, 1024), 256, 16
 # halo_kernels: K3 on rows BAND_R0.. of a random n=BAND_N grid, K3 through
 # the row extension and K4 at these sizes (1000: no multiple of any tile)
 BAND_N, BAND_ROWS, BAND_H, BAND_R0 = 512, 64, 8, 200
-EXTEND_N, STAGED_N = (512, 2048), (512, 2048, 1000)
+EXTEND_N = STAGED_N = (512, 1000, 2048)
 # ir_slice: benchmarks/solve_tpu.py's ir configuration (SOLVE_r05.json: 3
 # outer and 90 inner iterations, L2 2.3035e-5); the JAX package takes 124
 # inner iterations to L2 1.470731e-3 at n=64
 IR_ARGS = ["--n", "512", "--mode", "ir", "--tol", "1e-8", "--inner-tol",
            "1e-6", "--inner-maxiter", "40", "--max-outer", "5",
            "--pc-inner-tol", "1e-4"]
+# its counts on the card: 3 outer, 85-100 inner (f32 rounding moves the
+# inner count: 90-94 in earlier runs)
+IR_OUTER, IR_INNER = 3, (85, 100)
 IR_N64 = dict(n=64, eta_n=100, pc="lsc_mg_full", precision="ir", tol=1e-8,
               maxiter=100, inner_tol=1e-4, inner_iters=40)
 IR_N64_L2, IR_N64_JAX_INNER = 1.470731e-3, 124
@@ -1193,6 +1197,11 @@ def phase_ir_slice(dev) -> dict:
               f"ir {halo} L2 {l2:.6e} not within 5% of {L2_DISCRETIZATION}")
         check(bool(torch.isfinite(run["x"]).all()),
               "ir solution has non-finite values")
+        check(run["outer_iters"] == IR_OUTER
+              and IR_INNER[0] <= run["inner_iters"] <= IR_INNER[1],
+              f"ir {halo}: {run['outer_iters']} outer / {run['inner_iters']} "
+              f"inner iterations, not {IR_OUTER} / {IR_INNER[0]}-"
+              f"{IR_INNER[1]}")
         for k in ("f_apply", kernel_of[halo]):
             check(launches[k] > 0, f"kernel {k} was not launched by the "
                                    f"ir {halo} solve")
@@ -1293,7 +1302,8 @@ def main() -> None:
          halo[("extend", 512, torch.float32)],
          ir[("warm", "extend")]["launches"]["a_apply_band"]),
         ("a_apply_staged",
-         f"K4, f32, n=512, tile {cuda_stencil.STAGED_TILE}: the ir --halo "
+         f"K4, f32, n=512, tile {cuda_stencil.STAGED_TILE}: "
+         "the ir --halo "
          "pipelined matvec", halo[("staged", 512, torch.float32)],
          ir[("warm", "pipelined")]["launches"]["a_apply_staged"]),
         # each sparse kernel: its f64 comparison on an operand of its path,

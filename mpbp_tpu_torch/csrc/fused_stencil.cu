@@ -12,30 +12,37 @@
 //
 // The per-point arithmetic is written once (point_apply), term for term as
 // mpbp_tpu/models/fused.py writes it (flux form: differences first, then
-// scale; Ts = 1 - Tn taken at each neighbour), and templated over the plane
-// accessor that serves a neighbour read at (dr, dc), |dr|, |dc| <= 1:
-//   WinPlane   register window of a thread's points, wrapped once (K1, K2)
-//   BandPlane  global extended-row band: no row wrap, columns wrap (K3)
-//   TilePlane  shared-memory footprint of one tile (K4)
-// So K1-K4 run the same expressions and differ at most by the compiler's
-// FMA contraction.
+// scale; Ts = 1 - Tn taken at each neighbour), over WinPlane: the 3 x (P+2)
+// register window around a thread's P consecutive points of a row. K1-K3
+// fill the windows from global memory (window_apply), K4 from a tile's
+// footprint in shared memory (staged_kernel); all four run the same
+// expressions on registers.
 //
 // Bound: HBM bytes. K1 reads 7 planes and writes 4, K2-K4 read 8 and write
 // 5; ~190-250 operations per point are far below the card's flop/byte
-// balance. One pass, no coefficient planes, each output written once. K1
-// (the most launched kernel: the inner matvec and every velocity-MG level)
-// and K2 (the outer matvec, the ir inner matvec) are one kernel,
-// window_apply, over NF = 4 or 5 planes: P consecutive points of a row a
-// thread, the neighbour rows and columns wrapped once per thread by a
-// compare and add (a per-read wrap would pay two integer % on each of ~40
-// reads a point), theta and the NF state planes read as 3 x (P+2)
-// register windows (WinPlane), with one 8- or 16-byte load for two points'
-// own columns of each row and one store per output plane. K3 takes one
-// point per thread and shares the neighbour reads between the threads of
-// a 32x8 block through L1/L2. K4 stages each 2-D tile's (TR+2) x (TC+2)
-// footprint of theta and the 5 state planes in shared memory with
-// cp.async, double-buffered: a persistent CTA starts the copies of its
-// next tile before it computes the current one.
+// balance. One pass, no coefficient planes, each output written once.
+//
+// K1, K2 and K3 are one kernel body, window_apply, over NF = 4 or 5 planes
+// and a row map: K1/K2 read the periodic n x n grid (GridRows: rows r-1,
+// r+1 wrapped once per thread by a compare and add), K3 a band of n_loc
+// rows whose halo rows arrive in (n_loc+2h, n) extended planes (BandRows:
+// rows r+h-1 .. r+h+1, no wrap). Each thread takes P consecutive points of
+// a row, wraps its columns once (a per-read wrap would pay two integer %
+// on each of ~40 reads a point), reads theta and the state planes as
+// 3 x (P+2) register windows, with one 8- or 16-byte load for two points'
+// own columns of each row, and stores one vector per output plane.
+//
+// K4 keeps the TPU kernel's structure: persistent CTAs walk 2-D output
+// tiles, and a CTA issues the copies of its next tile (cp.async, double
+// buffer) before it computes the current one; on the H100 the two overlap
+// little, and K4 stays slower than K2 (PERF.md). Each footprint row of the 6
+// staged planes is laid out so that the tile's first column sits on a
+// 16-byte boundary: the tile's columns copy by 16-byte cp.async.cg, the
+// two halo columns element by element, and the wrap is computed once per
+// footprint row (only tiles on the grid's edge wrap at all). Compute reads
+// K2's register windows from the slot, at K2's points a thread, with
+// Wnx and Wny by one vector load for a thread's P points; 16 warps a CTA,
+// one CTA an SM.
 //
 // Inputs: theta_n (n, n), pointwise face planes Wnx, Wny (n, n), state
 // (NF, n, n) = [un, vn, us, vs(, p)]; output (NF, n, n). K3 takes theta
@@ -47,6 +54,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -79,31 +87,7 @@ Coefs<T> make_coefs(double c, double d, double xi, double eta_n,
   return k;
 }
 
-// K3: one (n_loc+2h, n) extended plane; re = r + h is the point's extended
-// row. Rows never wrap (the halo rows are whatever the caller put there);
-// columns wrap, since full rows are present.
-template <typename T>
-struct BandPlane {
-  const T* __restrict__ p;
-  int n, re, c;
-  __device__ __forceinline__ T operator()(int dr, int dc) const {
-    const int cc = (c + dc + n) % n;
-    return __ldg(p + static_cast<size_t>(re + dr) * n + cc);
-  }
-};
-
-// K4: one plane's (TR+2) x (TC+2) footprint in shared memory, row stride
-// ld = TC+2; at = (lr+1)*ld + lc+1 is the point's place in it.
-template <typename T>
-struct TilePlane {
-  const T* s;
-  int ld, at;
-  __device__ __forceinline__ T operator()(int dr, int dc) const {
-    return s[at + dr * ld + dc];
-  }
-};
-
-// K1: one plane's 3 x (P+2) window around a thread's P consecutive points
+// One plane's 3 x (P+2) window around a thread's P consecutive points
 // (rows r-1..r+1, columns c0-1..c0+P), held in registers; j is the point.
 template <typename T, int P>
 struct WinPlane {
@@ -114,9 +98,19 @@ struct WinPlane {
   }
 };
 
-// 2 consecutive values of one row by one 8- (f32) or 16-byte (f64) access.
+// P consecutive values of one row by one access: 8 (f32) or 16 bytes
+// (f64) for P = 2, a scalar for P = 1.
 template <typename T, int P>
 struct RowVec;
+template <typename T>
+struct RowVec<T, 1> {
+  __device__ __forceinline__ static void load(const T* p, T (&a)[1]) {
+    a[0] = __ldg(p);
+  }
+  __device__ __forceinline__ static void store(T* p, const T (&a)[1]) {
+    *p = a[0];
+  }
+};
 template <>
 struct RowVec<float, 2> {
   using V = float2;
@@ -279,27 +273,68 @@ __device__ __forceinline__ void load_window(const T* __restrict__ p,
   }
 }
 
-// K1 (NF = 4) and K2 (NF = 5): each thread computes P consecutive points
-// c0 .. c0+P-1 of row r. The wrapped rows and columns are computed once
-// per thread, by a compare and add; theta and the NF state planes are read
-// as 3 x (P+2) register windows, so a value is loaded about 3(P+2)/P
-// times, not 9; with kVec the points' own columns go by one 8- or 16-byte
-// load per row (P = 2) and the outputs by one store per plane. Of the
-// pressure window (NF = 5) phase_momentum reads only p(0,0), p(0,-1) and
-// p(-1,0); the compiler drops the other loads. point_apply is K3's and
-// K4's arithmetic.
-template <typename T, int NF, int P, bool kVec>
+// Row maps of window_apply: the count of output rows, the two plane
+// strides, and for output row r the three input rows it reads and the row
+// it writes (element offsets).
+// K1/K2: the periodic n x n grid; rows r-1 and r+1 wrap, once per thread.
+struct GridRows {
+  int n;
+  __host__ __device__ int count() const { return n; }
+  __device__ __forceinline__ size_t in_plane() const {
+    return static_cast<size_t>(n) * n;
+  }
+  __device__ __forceinline__ size_t out_plane() const { return in_plane(); }
+  __device__ __forceinline__ void rows(int r, size_t (&in)[3],
+                                       size_t& out) const {
+    in[0] = static_cast<size_t>(r == 0 ? n - 1 : r - 1) * n;
+    in[1] = static_cast<size_t>(r) * n;
+    in[2] = static_cast<size_t>(r == n - 1 ? 0 : r + 1) * n;
+    out = in[1];
+  }
+};
+
+// K3: band row r of n_loc reads rows r+h-1 .. r+h+1 of the (n_loc+2h, n)
+// extended theta and state planes, with no wrap (the halo rows are
+// whatever the caller put there), and writes row r of the (n_loc, n)
+// planes Wnx, Wny and out.
+struct BandRows {
+  int n, n_loc, h;
+  __host__ __device__ int count() const { return n_loc; }
+  __device__ __forceinline__ size_t in_plane() const {
+    return static_cast<size_t>(n_loc + 2 * h) * n;
+  }
+  __device__ __forceinline__ size_t out_plane() const {
+    return static_cast<size_t>(n_loc) * n;
+  }
+  __device__ __forceinline__ void rows(int r, size_t (&in)[3],
+                                       size_t& out) const {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      in[i] = static_cast<size_t>(r + h - 1 + i) * n;
+    out = static_cast<size_t>(r) * n;
+  }
+};
+
+// K1 (NF = 4), K2 and K3 (NF = 5): each thread computes P consecutive
+// points c0 .. c0+P-1 of output row r; the map gives the rows, the columns
+// wrap once per thread by a compare and add. Theta and the NF state planes
+// are read as 3 x (P+2) register windows, so a value is loaded about
+// 3(P+2)/P times, not 9; with kVec the points' own columns go by one 8- or
+// 16-byte load per row (P = 2) and the outputs by one store per plane. Of
+// the pressure window (NF = 5) phase_momentum reads only p(0,0), p(0,-1)
+// and p(-1,0); the compiler drops the other loads.
+template <typename T, int NF, int P, bool kVec, typename R>
 __device__ __forceinline__ void window_apply(
     const T* __restrict__ tn, const T* __restrict__ wnx,
     const T* __restrict__ wny, const T* __restrict__ x, T* __restrict__ out,
-    int n, const Coefs<T>& k) {
+    const R& map, const Coefs<T>& k) {
+  const int n = map.n;
   const int c0 = (blockIdx.x * blockDim.x + threadIdx.x) * P;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= n || c0 >= n) return;
-  const size_t plane = static_cast<size_t>(n) * n;
-  const size_t rows[3] = {static_cast<size_t>(r == 0 ? n - 1 : r - 1) * n,
-                          static_cast<size_t>(r) * n,
-                          static_cast<size_t>(r == n - 1 ? 0 : r + 1) * n};
+  if (r >= map.count() || c0 >= n) return;
+  const size_t plane = map.in_plane(), oplane = map.out_plane();
+  size_t rows[3], orow;
+  map.rows(r, rows, orow);
   int cc[P + 2];
 #pragma unroll
   for (int q = 0; q < P + 2; ++q) {
@@ -316,8 +351,8 @@ __device__ __forceinline__ void window_apply(
   if constexpr (NF == 5)
     load_window<T, P, kVec>(x + 4 * plane, rows, c0, cc, pr);
   T wx[P], wy[P];
-  load_points<T, P, kVec>(wnx + rows[1], c0, cc, wx);
-  load_points<T, P, kVec>(wny + rows[1], c0, cc, wy);
+  load_points<T, P, kVec>(wnx + orow, c0, cc, wx);
+  load_points<T, P, kVec>(wny + orow, c0, cc, wy);
   T o[NF][P];
 #pragma unroll
   for (int j = 0; j < P; ++j) {
@@ -332,7 +367,7 @@ __device__ __forceinline__ void window_apply(
   }
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
-    T* dst = out + f * plane + rows[1];
+    T* dst = out + f * oplane + orow;
     if constexpr (kVec) {
       RowVec<T, P>::store(dst + c0, o[f]);
     } else {
@@ -343,118 +378,189 @@ __device__ __forceinline__ void window_apply(
   }
 }
 
-#define WINDOW_PARAMS                                                       \
+#define WINDOW_PARAMS(R)                                                    \
   const T *__restrict__ tn, const T *__restrict__ wnx,                     \
       const T *__restrict__ wny, const T *__restrict__ x,                  \
-      T *__restrict__ out, int n, Coefs<T> k
+      T *__restrict__ out, R map, Coefs<T> k
 
 // K1.
 template <typename T, int P, bool kVec>
-__global__ void __launch_bounds__(256) f_apply_kernel(WINDOW_PARAMS) {
-  window_apply<T, 4, P, kVec>(tn, wnx, wny, x, out, n, k);
+__global__ void __launch_bounds__(256) f_apply_kernel(WINDOW_PARAMS(GridRows)) {
+  window_apply<T, 4, P, kVec>(tn, wnx, wny, x, out, map, k);
 }
 
-// K2. A minimum of one block an SM lets ptxas give it more registers than
-// its default does (f64: 122 against 80), which ran faster on the H100
-// (f64 at n=2048 168 against 190 us; f32 82 against 88), with the same
-// results bit for bit.
-template <typename T, int P, bool kVec>
-__global__ void __launch_bounds__(256, 1) a_apply_kernel(WINDOW_PARAMS) {
-  window_apply<T, 5, P, kVec>(tn, wnx, wny, x, out, n, k);
+// K2 (R = GridRows) and K3 (R = BandRows). A minimum of one block an SM
+// lets ptxas give it more registers than its default does (f64: 122
+// against 80), which ran faster on the H100 (K2 f64 at n=2048 168 against
+// 190 us; f32 82 against 88), with the same results bit for bit.
+template <typename T, int P, bool kVec, typename R>
+__global__ void __launch_bounds__(256, 1) a_apply_kernel(WINDOW_PARAMS(R)) {
+  window_apply<T, 5, P, kVec>(tn, wnx, wny, x, out, map, k);
 }
 
-// K3: one thread per point of an (n_loc, n) band; band row r reads
-// extended rows r+h-1 .. r+h+1.
+// A 16-byte copy global -> shared that bypasses L1 (cp.async.cg); both
+// addresses 16-byte aligned.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// K4's CTA: 16 warps. Its registers (f32 2 points a thread, f64 1) and a
+// tile's two slots leave one CTA an SM; on the H100 16 warps ran faster
+// than 8, and one CTA of 16 than two of 8.
+constexpr int kStagedThreads = 512;
+
+// K4's shared memory: two slots, each the 6 staged planes (theta, then the
+// 5 state planes) of one tile's (TR+2) x (TC+2) footprint, (TR+2) rows of
+// ld elements a plane. Footprint column q (global column c0-1+q, wrapped)
+// sits at row offset kLead-1+q, so the tile's own columns start kLead
+// elements (16 bytes) into the row; ld = TC + 2 kLead keeps every row
+// 16-byte aligned. ops/cuda_stencil.staged_smem_bytes mirrors this.
 template <typename T>
-__global__ void __launch_bounds__(256)
-band_kernel(const T* __restrict__ tn_ext, const T* __restrict__ wnx,
-            const T* __restrict__ wny, const T* __restrict__ x_ext,
-            T* __restrict__ out, int n_loc, int n, int h, Coefs<T> k) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= n_loc || c >= n) return;
-  const size_t ext = static_cast<size_t>(n_loc + 2 * h) * n;
-  const size_t plane = static_cast<size_t>(n_loc) * n;
-  const size_t at = static_cast<size_t>(r) * n + c;
-  const int re = r + h;
+struct StagedLayout {
+  static constexpr int kLead = 16 / sizeof(T);
+  int ld, fp, slot;   // row stride, one plane's footprint, one slot
+  __host__ __device__ StagedLayout(int tr, int tc)
+      : ld(tc + 2 * kLead), fp((tr + 2) * ld), slot(6 * fp) {}
+  __host__ size_t bytes() const { return 2 * sizeof(T) * slot; }
+};
 
-  const BandPlane<T> un{x_ext, n, re, c}, vn{x_ext + ext, n, re, c};
-  const BandPlane<T> us{x_ext + 2 * ext, n, re, c};
-  const BandPlane<T> vs{x_ext + 3 * ext, n, re, c};
-  const BandPlane<T> pr{x_ext + 4 * ext, n, re, c};
-  T o[5];
-  point_apply<T, 5>(BandPlane<T>{tn_ext, n, re, c}, un, vn, us, vs, pr,
-                    __ldg(wnx + at), __ldg(wny + at), k, o);
+// A 3 x (P+2) window of one staged plane; `at` is the window's top-left
+// element (footprint row lr, the column left of the thread's first point).
+// The P middle values of a row go by one 8- or 16-byte shared load.
+template <typename T, int P>
+__device__ __forceinline__ void smem_window(const T* s, int at, int ld,
+                                            T (&w)[3][P + 2]) {
 #pragma unroll
-  for (int f = 0; f < 5; ++f) out[f * plane + at] = o[f];
+  for (int i = 0; i < 3; ++i) {
+    const T* row = s + at + i * ld;
+    w[i][0] = row[0];
+    if constexpr (P == 2) {
+      using V = typename std::conditional<sizeof(T) == 4, float2,
+                                          double2>::type;
+      const V v = *reinterpret_cast<const V*>(row + 1);
+      w[i][1] = v.x;
+      w[i][2] = v.y;
+    } else {
+#pragma unroll
+      for (int q = 0; q < P; ++q) w[i][1 + q] = row[1 + q];
+    }
+    w[i][P + 1] = row[P + 1];
+  }
 }
 
-constexpr int kStagedThreads = 256;
-
-// K4: persistent CTAs walk the (TR, TC) output tiles t = blockIdx.x,
-// blockIdx.x + gridDim.x, ... Shared memory holds two slots, each the
-// (TR+2) x (TC+2) periodic footprint of theta and the 5 state planes. The
-// copies of tile t+gridDim.x go into the other slot (cp.async, one element
-// each, the wrap done per element) before tile t is computed from its slot;
-// the 5 outputs go straight to global memory. TC is a multiple of 32: each
-// warp takes whole footprint and tile rows, its lanes adjacent columns.
-template <typename T>
-__global__ void __launch_bounds__(kStagedThreads)
+// K4: persistent CTAs, one an SM, walk the (tr, tc) output tiles
+// t = blockIdx.x, blockIdx.x + gridDim.x, ... The copies of tile
+// t + gridDim.x go into the other slot before tile t is computed from its
+// slot. A warp copies whole
+// footprint rows: with kVec (n a multiple of kLead, 16-byte aligned
+// planes) its lanes take the tile's columns 16 bytes at a time, wrapped a
+// chunk at a time past the grid's right edge; else element by element.
+// Two lanes copy the halo columns. Compute: each thread takes P
+// consecutive points of a tile row, reads its register windows from the
+// slot and Wnx, Wny from global memory, and stores the 5 outputs there.
+template <typename T, int P, bool kVec>
+__global__ void __launch_bounds__(kStagedThreads, 1)
 staged_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
               const T* __restrict__ wny, const T* __restrict__ x,
               T* __restrict__ out, int n, int tr, int tc, Coefs<T> k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  const int ld = tc + 2;
+  constexpr int kLead = StagedLayout<T>::kLead;
+  const StagedLayout<T> lay(tr, tc);
+  const int ld = lay.ld, fp = lay.fp;
   const int fp_rows = tr + 2;
-  const int fp = fp_rows * ld;          // one plane's footprint
-  const int slot_elems = 6 * fp;        // theta + 5 state planes
   const size_t plane = static_cast<size_t>(n) * n;
   const int tiles_c = (n + tc - 1) / tc;
   const int ntiles = ((n + tr - 1) / tr) * tiles_c;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  constexpr int kWarps = kStagedThreads / 32;
 
-  auto wrap = [n](int i) {
-    if (i < 0) i += n;
-    if (i >= n) i %= n;
-    return i;
-  };
+  // a column or row index in [-1, n + tc) on the periodic grid
+  auto wrap = [n](int i) { return i < 0 ? i + n : (i < n ? i : i % n); };
 
   auto prefetch = [&](int slot, int t) {
-    T* s = smem + slot * slot_elems;
-    const int r0 = (t / tiles_c) * tr - 1;
-    const int c0 = (t % tiles_c) * tc - 1;
-    for (int row = warp; row < 6 * fp_rows; row += nwarps) {
-      const int q = row / fp_rows;
-      const int lr = row - q * fp_rows;
+    T* s = smem + slot * lay.slot;
+    const int tile_r = t / tiles_c;
+    const int r0 = tile_r * tr - 1;               // footprint row 0
+    const int c0 = (t - tile_r * tiles_c) * tc;   // the tile's column 0
+    for (int job = warp; job < 6 * fp_rows; job += kWarps) {
+      const int q = job / fp_rows;
+      const int lr = job - q * fp_rows;
       const T* src = (q == 0 ? tn : x + (q - 1) * plane)
                      + static_cast<size_t>(wrap(r0 + lr)) * n;
-      T* dst = s + q * fp + lr * ld;
-      for (int lc = lane; lc < ld; lc += 32)
-        __pipeline_memcpy_async(dst + lc, src + wrap(c0 + lc), sizeof(T));
+      T* dst = s + q * fp + lr * ld + kLead;      // column c0
+      if constexpr (kVec) {
+        for (int i = lane * kLead; i < tc; i += 32 * kLead) {
+          const int c = c0 + i;
+          copy16_async(dst + i, src + (c < n ? c : c % n));
+        }
+      } else {
+        for (int i = lane; i < tc; i += 32)
+          __pipeline_memcpy_async(dst + i, src + wrap(c0 + i), sizeof(T));
+      }
+      if (lane == 0)
+        __pipeline_memcpy_async(dst - 1, src + wrap(c0 - 1), sizeof(T));
+      else if (lane == 1)
+        __pipeline_memcpy_async(dst + tc, src + wrap(c0 + tc), sizeof(T));
     }
   };
 
   auto compute = [&](int slot, int t) {
-    const T* s = smem + slot * slot_elems;
-    const int r0 = (t / tiles_c) * tr;
-    const int c0 = (t % tiles_c) * tc;
-    for (int lr = warp; lr < tr && r0 + lr < n; lr += nwarps) {
-      const int r = r0 + lr;
-      for (int lc = lane; lc < tc && c0 + lc < n; lc += 32) {
-        const int c = c0 + lc;
-        const int a = (lr + 1) * ld + lc + 1;
-        const size_t at = static_cast<size_t>(r) * n + c;
-        const TilePlane<T> un{s + fp, ld, a}, vn{s + 2 * fp, ld, a};
-        const TilePlane<T> us{s + 3 * fp, ld, a}, vs{s + 4 * fp, ld, a};
-        const TilePlane<T> pr{s + 5 * fp, ld, a};
-        T o[5];
-        point_apply<T, 5>(TilePlane<T>{s, ld, a}, un, vn, us, vs, pr,
-                          __ldg(wnx + at), __ldg(wny + at), k, o);
+    const T* s = smem + slot * lay.slot;
+    const int tile_r = t / tiles_c;
+    const int r0 = tile_r * tr;
+    const int c0 = (t - tile_r * tiles_c) * tc;
+    const int groups = tc / P;                    // thread groups a row
+    for (int g = threadIdx.x; g < tr * groups; g += kStagedThreads) {
+      const int lr = g / groups;
+      const int lc = (g - lr * groups) * P;
+      const int r = r0 + lr, c = c0 + lc;
+      if (r >= n || c >= n) continue;
+      const int at = lr * ld + kLead - 1 + lc;
+      T th[3][P + 2], un[3][P + 2], vn[3][P + 2], us[3][P + 2];
+      T vs[3][P + 2], pr[3][P + 2];
+      smem_window<T, P>(s, at, ld, th);
+      smem_window<T, P>(s + fp, at, ld, un);
+      smem_window<T, P>(s + 2 * fp, at, ld, vn);
+      smem_window<T, P>(s + 3 * fp, at, ld, us);
+      smem_window<T, P>(s + 4 * fp, at, ld, vs);
+      smem_window<T, P>(s + 5 * fp, at, ld, pr);
+      const size_t row = static_cast<size_t>(r) * n;
+      T wx[P], wy[P];
+      if constexpr (kVec) {
+        RowVec<T, P>::load(wnx + row + c, wx);
+        RowVec<T, P>::load(wny + row + c, wy);
+      } else {
 #pragma unroll
-        for (int f = 0; f < 5; ++f) out[f * plane + at] = o[f];
+        for (int j = 0; j < P; ++j) {
+          wx[j] = c + j < n ? __ldg(wnx + row + c + j) : T(0);
+          wy[j] = c + j < n ? __ldg(wny + row + c + j) : T(0);
+        }
+      }
+      T o[5][P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        T oj[5];
+        point_apply<T, 5>(WinPlane<T, P>{th, j}, WinPlane<T, P>{un, j},
+                          WinPlane<T, P>{vn, j}, WinPlane<T, P>{us, j},
+                          WinPlane<T, P>{vs, j}, WinPlane<T, P>{pr, j},
+                          wx[j], wy[j], k, oj);
+#pragma unroll
+        for (int f = 0; f < 5; ++f) o[f][j] = oj[f];
+      }
+#pragma unroll
+      for (int f = 0; f < 5; ++f) {
+        T* dst = out + f * plane + row + c;
+        if constexpr (kVec) {
+          RowVec<T, P>::store(dst, o[f]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < P; ++j)
+            if (c + j < n) dst[j] = o[f][j];
+        }
       }
     }
   };
@@ -473,25 +579,31 @@ staged_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
   }
 }
 
-// K3's block: 32 columns by 8 rows.
-const dim3 kBlock(32, 8);
-
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// K1 (NF = 4) or K2 (NF = 5), P points a thread in blocks of 32 x BY
-// threads (see the entry points); kVec where n % P == 0 and every plane is
-// 16-byte aligned.
-template <typename T, int NF, int P, int BY>
+// The code of a runtime call that refused, after taking it off the
+// thread's last error: the next launch's cudaGetLastError must not report
+// it.
+inline int refused(cudaError_t err) {
+  cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+// K1 (NF = 4) or K2/K3 (NF = 5) over row map R, P points a thread in
+// blocks of 32 x BY threads (see the entry points); kVec where n % P == 0
+// and every plane is 16-byte aligned.
+template <typename T, int NF, int P, int BY, typename R>
 int launch_window(const T* tn, const T* wnx, const T* wny, const T* x,
-                  T* out, int n, const Coefs<T>& k, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+                  T* out, const R& map, const Coefs<T>& k, void* stream) {
+  const int n = map.n;
+  if (n < 1 || map.count() < 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const int groups = (n + P - 1) / P;
   const dim3 block(32, BY);
   const dim3 grid((groups + block.x - 1) / block.x,
-                  (n + block.y - 1) / block.y);
+                  (map.count() + block.y - 1) / block.y);
   const bool vec = P > 1 && n % P == 0 && aligned16(tn) && aligned16(wnx)
                    && aligned16(wny) && aligned16(x) && aligned16(out);
   constexpr bool kVec = P > 1;
@@ -499,61 +611,67 @@ int launch_window(const T* tn, const T* wnx, const T* wny, const T* x,
     if constexpr (NF == 4)
       return vec ? &f_apply_kernel<T, P, kVec> : &f_apply_kernel<T, P, false>;
     else
-      return vec ? &a_apply_kernel<T, P, kVec> : &a_apply_kernel<T, P, false>;
+      return vec ? &a_apply_kernel<T, P, kVec, R>
+                 : &a_apply_kernel<T, P, false, R>;
   }();
-  kernel<<<grid, block, 0, s>>>(tn, wnx, wny, x, out, n, k);
+  kernel<<<grid, block, 0, s>>>(tn, wnx, wny, x, out, map, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_band(const T* tn_ext, const T* wnx, const T* wny, const T* x_ext,
-                T* out, int n_loc, int n, int h, const Coefs<T>& k,
-                void* stream) {
-  if (n_loc < 1 || n < 1 || h < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kBlock.x - 1) / kBlock.x,
-                  (n_loc + kBlock.y - 1) / kBlock.y);
-  band_kernel<T><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      tn_ext, wnx, wny, x_ext, out, n_loc, n, h, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_staged(const T* tn, const T* wnx, const T* wny, const T* x,
-                  T* out, int n, int tr, int tc, const Coefs<T>& k,
-                  void* stream) {
-  if (n < 1 || tr < 1 || tc < 32 || tc % 32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * 6 * static_cast<size_t>(tr + 2) * (tc + 2)
-                      * sizeof(T);
-  // above the default 48 KB a kernel must opt in; done once per size
-  // increase, so a launch inside a CUDA graph capture makes no such call
+// One instance of K4: above the default 48 KB a kernel must opt in, done
+// once per size increase, so a launch inside a CUDA graph capture makes no
+// such call; the grid is as many CTAs as fit on the card at once, or the
+// tiles if fewer.
+template <typename T, int P, bool kVec>
+int launch_staged_as(const T* tn, const T* wnx, const T* wny, const T* x,
+                     T* out, int n, int tr, int tc, const Coefs<T>& k,
+                     cudaStream_t stream) {
+  auto* kernel = &staged_kernel<T, P, kVec>;
+  const size_t smem = StagedLayout<T>(tr, tc).bytes();
   static size_t opted = 48 * 1024;
   cudaError_t err;
   if (smem > opted) {
-    err = cudaFuncSetAttribute(staged_kernel<T>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return refused(err);
     opted = smem;
   }
   int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return refused(err);
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
-    return static_cast<int>(err);
+    return refused(err);
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, staged_kernel<T>, kStagedThreads, smem)) != cudaSuccess)
-    return static_cast<int>(err);
+           &per_sm, kernel, kStagedThreads, smem))
+      != cudaSuccess)
+    return refused(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long ntiles = static_cast<long long>((n + tr - 1) / tr)
                            * ((n + tc - 1) / tc);
   const long long resident = static_cast<long long>(per_sm) * sms;
   const int grid = static_cast<int>(ntiles < resident ? ntiles : resident);
-  staged_kernel<T><<<grid, kStagedThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      tn, wnx, wny, x, out, n, tr, tc, k);
+  kernel<<<grid, kStagedThreads, smem, stream>>>(tn, wnx, wny, x, out, n, tr,
+                                                 tc, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K4 at P points a thread; kVec where n is a multiple of 16 bytes' worth
+// of elements and every plane is 16-byte aligned.
+template <typename T, int P>
+int launch_staged(const T* tn, const T* wnx, const T* wny, const T* x,
+                  T* out, int n, int tr, int tc, const Coefs<T>& k,
+                  void* stream) {
+  if (n < 1 || tr < 1 || tc < 32 || tc % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = n % (16 / sizeof(T)) == 0 && aligned16(tn)
+                   && aligned16(wnx) && aligned16(wny) && aligned16(x)
+                   && aligned16(out);
+  return vec ? launch_staged_as<T, P, true>(tn, wnx, wny, x, out, n, tr, tc,
+                                            k, s)
+             : launch_staged_as<T, P, false>(tn, wnx, wny, x, out, n, tr,
+                                             tc, k, s);
 }
 
 }  // namespace
@@ -564,41 +682,44 @@ int launch_staged(const T* tn, const T* wnx, const T* wny, const T* x,
 #define COEF_ARGS(T) \
   make_coefs<T>(c, d, xi, eta_n, eta_s, d_p, d_div, dx, dy)
 
-#define BAND_ENTRY(NAME, T)                                                 \
-  extern "C" int NAME(const T* tn_ext, const T* wnx, const T* wny,          \
-                      const T* x_ext, T* out, int n_loc, int n, int h,      \
-                      COEF_PARAMS, void* stream) {                          \
-    return launch_band<T>(tn_ext, wnx, wny, x_ext, out, n_loc, n, h,        \
-                          COEF_ARGS(T), stream);                            \
-  }
-
-#define STAGED_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
-                      T* out, int n, int tr, int tc, COEF_PARAMS,           \
-                      void* stream) {                                       \
-    return launch_staged<T>(tn, wnx, wny, x, out, n, tr, tc, COEF_ARGS(T),  \
-                            stream);                                        \
-  }
-
 #define WINDOW_ENTRY(NAME, T, NF, P, BY)                                    \
   extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
                       T* out, int n, COEF_PARAMS, void* stream) {           \
-    return launch_window<T, NF, P, BY>(tn, wnx, wny, x, out, n,             \
+    return launch_window<T, NF, P, BY>(tn, wnx, wny, x, out, GridRows{n},   \
                                        COEF_ARGS(T), stream);               \
+  }
+
+#define BAND_ENTRY(NAME, T, P, BY)                                          \
+  extern "C" int NAME(const T* tn_ext, const T* wnx, const T* wny,          \
+                      const T* x_ext, T* out, int n_loc, int n, int h,      \
+                      COEF_PARAMS, void* stream) {                          \
+    if (h < 1) return static_cast<int>(cudaErrorInvalidValue);              \
+    return launch_window<T, 5, P, BY>(tn_ext, wnx, wny, x_ext, out,         \
+                                      BandRows{n, n_loc, h}, COEF_ARGS(T),  \
+                                      stream);                              \
+  }
+
+#define STAGED_ENTRY(NAME, T, P)                                            \
+  extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
+                      T* out, int n, int tr, int tc, COEF_PARAMS,           \
+                      void* stream) {                                       \
+    return launch_staged<T, P>(tn, wnx, wny, x, out, n, tr, tc,             \
+                               COEF_ARGS(T), stream);                       \
   }
 
 // Points a thread and block rows, from times on the H100 (32 x 8 and 32 x
 // 4 blocks; 1 and 2 points): K1 2 points in 32 x 8 blocks, f32 and f64;
 // K2 2 points (f32) or 1 point (f64) in 32 x 4 blocks. K2 f64 at 2 points
-// takes 158 registers, which leaves one block of 256 threads an SM.
+// takes 158 registers, which leaves one block of 256 threads an SM. K3 is
+// K2 on a band and K4 computes as K2 does: the same points a thread.
 WINDOW_ENTRY(f_apply_f32, float, 4, 2, 8)
 WINDOW_ENTRY(f_apply_f64, double, 4, 2, 8)
 WINDOW_ENTRY(a_apply_f32, float, 5, 2, 4)
 WINDOW_ENTRY(a_apply_f64, double, 5, 1, 4)
-BAND_ENTRY(a_apply_band_f32, float)
-BAND_ENTRY(a_apply_band_f64, double)
-STAGED_ENTRY(a_apply_staged_f32, float)
-STAGED_ENTRY(a_apply_staged_f64, double)
+BAND_ENTRY(a_apply_band_f32, float, 2, 4)
+BAND_ENTRY(a_apply_band_f64, double, 1, 4)
+STAGED_ENTRY(a_apply_staged_f32, float, 2)
+STAGED_ENTRY(a_apply_staged_f64, double, 1)
 
 extern "C" const char* fused_stencil_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -241,9 +241,12 @@ def _solve_setup(n, c, d, xi, eta_n, eta_s, problem, dtype, pc, precision,
     operators, MG hierarchies and the MMS vectors, all on `device`. A
     repeated solve of the same configuration reuses them (a warm solve)."""
     device = torch.device(device)
-    key = (n, c, d, xi, eta_n, eta_s, problem, dtype, pc, precision,
-           str(device), tuple(sorted(pc_kwargs.items())))
-    hit = _SETUP_CACHE.get(key)
+    try:
+        key = (n, c, d, xi, eta_n, eta_s, problem, dtype, pc, precision,
+               str(device), tuple(sorted(pc_kwargs.items())))
+        hit = _SETUP_CACHE.get(key)
+    except TypeError:             # unhashable pc_kwargs value: no memo
+        key, hit = None, None
     if hit is not None:
         return hit
 
@@ -276,9 +279,10 @@ def _solve_setup(n, c, d, xi, eta_n, eta_s, problem, dtype, pc, precision,
                         b_vec=pack_fields(op, b),
                         u_vec=pack_fields(op, u_exact), mv32=mv32,
                         scale=scale)
-    if len(_SETUP_CACHE) >= _SETUP_CACHE_MAX:
-        _SETUP_CACHE.pop(next(iter(_SETUP_CACHE)))
-    _SETUP_CACHE[key] = setup
+    if key is not None:
+        if len(_SETUP_CACHE) >= _SETUP_CACHE_MAX:
+            _SETUP_CACHE.pop(next(iter(_SETUP_CACHE)))
+        _SETUP_CACHE[key] = setup
     return setup
 
 

@@ -169,11 +169,14 @@ def make_fused_apply_kernel(op: MultiphaseOperator, halo: str = "inkernel",
       'extend'    - the periodic wrap rows appended by `torch.cat` before
                     each call (the TPU path's pre-pass, an extra copy of
                     the state per matvec, kept to measure what that copy
-                    costs), then kernel K3 (`a_apply_band`) on the band of
-                    all n rows;
-      'pipelined' - kernel K4 (`a_apply_staged`): 2-D tiles double-buffered
-                    in shared memory, `tile` = (rows, cols) or None for
-                    `ops.cuda_stencil.STAGED_TILE`.
+                    costs), then kernel K3 (`a_apply_band`: K2's register
+                    windows on the extended rows, no row wrap) on the band
+                    of all n rows;
+      'pipelined' - kernel K4 (`a_apply_staged`): persistent CTAs over 2-D
+                    tiles whose footprints are double-buffered in shared
+                    memory by 16-byte cp.async, computed from register
+                    windows read out of the slot; `tile` = (rows, cols), or
+                    None for `ops.cuda_stencil.STAGED_TILE`.
 
     The TPU's `block_rows` (and its VMEM budget) has no counterpart: only K4
     takes a tile, and K2/K3 refuse one."""

@@ -16,30 +16,32 @@ Replaces `mpbp_tpu/ops/pallas_stencil.py`:
   * `a_apply_staged` (K4, entry points a_apply_staged_f32/_f64) replaces
     `multiphase_pallas_apply_pipelined`: K2's function, computed by
     persistent CTAs from 2-D tiles whose (TR+2) x (TC+2) footprints are
-    double-buffered in shared memory with cp.async, so the next tile's
-    reads are in flight while the current tile computes.
+    double-buffered in shared memory with cp.async: a CTA issues the next
+    tile's reads before it computes the current tile.
 All four run `models/fused.velocity_block_math` / `multiphase_apply_math`
 term for term, in flux form, from the theta_n cell plane and the two
 pointwise face planes; every other coefficient is recomputed in registers.
-In `csrc/fused_stencil.cu` that arithmetic is one template over the plane
-accessor, so K1-K4 differ at most by FMA contraction.
+In `csrc/fused_stencil.cu` that arithmetic is one template over a thread's
+3 x (P+2) register windows, so K1-K4 differ at most by FMA contraction.
 
 What bounds them: HBM bytes. K1 reads 7 planes (3 theta + 4 state) and
 writes 4; K2-K4 read 8 and write 5. At ~190-250 operations per point
 against 88 (K1, f64) to 104 (K2, f64) bytes per point, all sit far below
 the card's flop/byte balance. The design answers that the way the TPU
 kernels did: one pass, no coefficient planes streamed, each output written
-once. K1, the most launched, and K2 are one kernel over 4 or 5 planes: a
-thread takes P points of a row (K1 2; K2 2 in f32, 1 in f64, where 2
-points cost 158 registers), wraps rows and columns once (no integer
-modulo per read) and reads each plane as a 3 x (P+2) register window, two
-points' own columns by one 8- or 16-byte load. In K3 the radius-1
-neighbour reads (~40 per point) are served by L1/L2, since adjacent
-threads of a 32x8 block share them; K4 serves them from shared memory.
-The TPU's fixed 8-row halo, predicated wrap DMAs and VMEM row blocks
-existed for Mosaic's alignment rules: K1/K2 wrap once per thread, K3
-takes any h >= 1, and K4 tiles in 2-D because one full f64 row of 6
-planes at n=2048 is 98 KB.
+once. K1, K2 and K3 are one kernel body over 4 or 5 planes and a row map
+(K1/K2 the periodic grid, K3 the band's extended rows): a thread takes P
+points of a row (K1 2; K2 and K3 2 in f32, 1 in f64, where 2 points cost
+158 registers), wraps its rows and columns once (no integer modulo per
+read) and reads each plane as a 3 x (P+2) register window, two points' own
+columns by one 8- or 16-byte load. K4 stages each tile's footprint with its
+first column on a 16-byte boundary (`staged_row_stride`), so the tile's
+columns copy by 16-byte cp.async and only the two halo columns and the
+grid's edge tiles wrap, and computes from register windows read out of the
+slot, at K2's points a thread. The TPU's fixed 8-row halo, predicated wrap
+DMAs and VMEM row blocks existed for Mosaic's alignment rules: K1/K2 wrap
+once per thread, K3 takes any h >= 1, and K4 tiles in 2-D because one full
+f64 row of 6 planes at n=2048 is 98 KB.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch the kernel or raise. `LAUNCHES` counts kernel launches only.
@@ -59,9 +61,10 @@ LAUNCHES = {"f_apply": 0, "a_apply": 0, "a_apply_band": 0,
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
-# K4's default (rows, cols) output tile: per CTA of 256 threads, 512
-# points, two slots of 6 x 10 x 66 elements (31.7 KB f32, 63.4 KB f64)
-STAGED_TILE = (8, 64)
+# K4's default (rows, cols) output tile, per CTA of 512 threads: two slots
+# of the 6-plane footprint (`staged_smem_bytes`: 117,504 bytes f32, 228,096
+# f64), the fastest tile at n=512 on the H100 in f32 and in f64
+STAGED_TILE = (16, 128)
 # shared memory one block may opt in to on Hopper (232,448 bytes)
 _SMEM_OPTIN_MAX = 227 * 1024
 
@@ -140,10 +143,29 @@ def a_apply_band(tn_ext, wnx, wny, x_ext, params: dict, dx: float,
         params, dx, dy, (n_loc, n, h), (5, n_loc, n))
 
 
+def staged_row_stride(tc: int, dtype: torch.dtype) -> int:
+    """Elements a footprint row of K4's shared memory takes for a tile of
+    `tc` columns: 16 bytes' worth of elements (the lead) before the tile's
+    first column, so it sits on a 16-byte boundary, then the tile's columns
+    and a second lead that holds the right halo column and keeps the next
+    row aligned (`StagedLayout` in csrc/fused_stencil.cu)."""
+    return tc + 2 * (16 // dtype.itemsize)
+
+
+def staged_smem_bytes(tile, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K4 CTA: two slots, each (rows+2)
+    footprint rows of the 6 staged planes."""
+    tr, tc = tile
+    return 2 * 6 * (tr + 2) * staged_row_stride(tc, dtype) * dtype.itemsize
+
+
 def check_tile(tile, dtype: torch.dtype) -> tuple[int, int]:
-    """K4's (rows, cols) output tile, validated: cols a multiple of 32 (a
-    warp spans adjacent columns), and two slots of the 6-plane (rows+2) x
-    (cols+2) footprint within the shared memory one block may use."""
+    """K4's (rows, cols) output tile, validated (None: `STAGED_TILE`):
+    cols a multiple of 32 (whole 16-byte copies and whole warps a footprint
+    row), and `staged_smem_bytes` within the shared memory one block may
+    use."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"dtype {dtype} not supported (float32/float64)")
     if tile is None:
         return STAGED_TILE
     try:
@@ -153,9 +175,7 @@ def check_tile(tile, dtype: torch.dtype) -> tuple[int, int]:
     if tr < 1 or tc < 32 or tc % 32:
         raise ValueError(f"tile {tile!r}: rows >= 1 and cols a positive "
                          "multiple of 32")
-    if dtype not in _SUFFIX:
-        raise TypeError(f"dtype {dtype} not supported (float32/float64)")
-    smem = 2 * 6 * (tr + 2) * (tc + 2) * torch.finfo(dtype).bits // 8
+    smem = staged_smem_bytes((tr, tc), dtype)
     if smem > _SMEM_OPTIN_MAX:
         raise ValueError(f"tile {tile!r} needs {smem} B of shared memory in "
                          f"{dtype}; at most {_SMEM_OPTIN_MAX}")
@@ -165,8 +185,8 @@ def check_tile(tile, dtype: torch.dtype) -> tuple[int, int]:
 def a_apply_staged(tn, wnx, wny, x, params: dict, dx: float, dy: float,
                    tile=None) -> torch.Tensor:
     """K4: K2's (5, n, n) -> (5, n, n) from double-buffered shared-memory
-    tiles of shape `tile` (default STAGED_TILE). Kernel on CUDA, plain
-    version (K2's) on CPU."""
+    tiles of shape `tile` (default: STAGED_TILE). Kernel on
+    CUDA, plain version (K2's) on CPU."""
     _check(5, tn, wnx, wny, x)
     tr, tc = check_tile(tile, x.dtype)
     return _dispatch("a_apply_staged", a_apply_reference, (tn, wnx, wny, x),

@@ -87,6 +87,7 @@ class ArnoldiState:
     g: np.ndarray         # (m+1,) rotated rhs
     hist: np.ndarray      # (m+1,) residual estimates, NaN-padded
     done: bool            # convergence/breakdown flag
+    lost: bool = False    # done on a column that was dropped: not converged
 
 
 def _safe_bnorm(b: torch.Tensor):
@@ -168,14 +169,12 @@ def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
             h = h + h2
         wnorm = np.sqrt(max(est2, npdt(0)))
 
-    # happy breakdown: A z landed inside the current Krylov space; the
-    # column ends here and the solve stops after this update
+    # breakdown: A z landed inside the current basis's span, and the column
+    # ends the cycle
     breakdown = bool(wnorm <= 1e-12 * wnorm_pre)
     col = np.zeros(m + 1, npdt)
     col[:j + 1] = h
     col[j + 1] = 0 if breakdown else wnorm
-    if not breakdown:
-        V[j + 1] = w / float(wnorm) if wnorm > 0 else w
 
     for i in range(j):
         hi = cs[i] * col[i] + sn[i] * col[i + 1]
@@ -183,6 +182,19 @@ def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
         col[i], col[i + 1] = hi, hip
 
     rho = np.sqrt(col[j] ** 2 + col[j + 1] ** 2)
+    scale = max(np.abs(H[:j, :j]).max(initial=npdt(0)), wnorm_pre)
+    if breakdown and rho <= max(1e-12, 100 * np.finfo(npdt).eps) * scale:
+        # not a happy breakdown: z_j repeats a direction of Z (a variable
+        # preconditioner, or an augmentation along an earlier z), so H is
+        # singular and its rotated diagonal is rounding noise. The estimate
+        # would read 0 and the back-substitution divide by that noise; the
+        # cycle ends at the last good column without claiming convergence
+        # (the JAX package's FGMRES does claim it here). A breakdown with H
+        # nonsingular, augmentation column or not, is an exact solve.
+        state.done = state.lost = True
+        return
+    if not breakdown:
+        V[j + 1] = w / float(wnorm) if wnorm > 0 else w
     c_new = npdt(1) if rho == 0 else col[j] / rho
     s_new = npdt(0) if rho == 0 else col[j + 1] / rho
     cs[j], sn[j] = c_new, s_new
@@ -217,7 +229,7 @@ def _arnoldi_solution(state: ArnoldiState, x0: torch.Tensor, M: Callable,
         x = x0 + dx.reshape(x0.shape)
     res_final = abs(g[min(j, m)]) if j > 0 else state.hist[0]
     return KrylovResult(x, j, float(res_final / safe_bnorm), state.hist,
-                        state.done)
+                        state.done and not state.lost)
 
 
 def _cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
@@ -316,7 +328,9 @@ def _restarted(matvec, b, x0, tol, maxiter, restart, M, use_z, orthog,
     len(history) - 1.
 
     aug_k > 0 keeps the last aug_k normalized cycle corrections dx and
-    seeds the next cycle with them."""
+    seeds the next cycle with them. A cycle that ends early without
+    converging dropped a column (`_arnoldi_step`): the augmentations are
+    dropped too, and the next cycle runs plain."""
     x = x0
     total_iters = 0
     hists = []
@@ -334,6 +348,8 @@ def _restarted(matvec, b, x0, tol, maxiter, restart, M, use_z, orthog,
             dx = result.x - x
             nrm = float(_vnorm(dx))
             augs = (augs + [dx / nrm])[-aug_k:] if nrm > 0 else []
+        if not result.converged and it < cycle:
+            augs = []
         x = result.x
         total_iters += it
         h = result.res_history[: it + 1]

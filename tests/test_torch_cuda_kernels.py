@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from mpbp_tpu_torch import bench
 from mpbp_tpu_torch.drivers import solve_multiphase
-from mpbp_tpu_torch.models.fused import make_fused_apply_kernel
+from mpbp_tpu_torch.models.fused import _extend_rows, make_fused_apply_kernel
 from mpbp_tpu_torch.models.multiphase import operator_from_numpy
 from mpbp_tpu_torch.ops import cuda_dia, cuda_ell, cuda_stencil
 from mpbp_tpu_torch.ops.dia import DIAMatrix
@@ -308,13 +309,31 @@ def test_a_apply_matches_plain(cuda_device, dtype, bound, n):
     _assert_close(cuda_stencil.a_apply(*shifted), got, bound)
 
 
+# K4's tiles: its default, every tile the A-apply race runs (where it fits
+# the dtype's shared memory), one-row and 40-row tiles, 32- and 64-column
+# tiles (8 or 16 lanes a footprint row issue the 16-byte copies in f32),
+# one that divides none of the sizes below (7 x 96), and one wider than
+# the small grids (2 x 256: its footprint wraps past n)
+K4_TILES = (None, *bench.PIPELINED_TILES, (1, 32), (4, 32), (8, 64),
+            (16, 64), (40, 32), (7, 96), (2, 256))
+
+
+def _k4_tiles(dtype):
+    return [t for t in K4_TILES if t is None or
+            cuda_stencil.staged_smem_bytes(t, dtype)
+            <= cuda_stencil._SMEM_OPTIN_MAX]
+
+
 @pytest.mark.parametrize("dtype,bound", BOUNDS)
-def test_k3_extend_and_k4_match_plain_and_k2(cuda_device, dtype, bound):
-    """At n=50 (no multiple of the 32x8 block or of any K4 tile: masked
-    edges, partial tiles, a grid of fewer tiles than CTAs): K3 through the
-    row extension and K4 at several tiles against the plain apply and
-    against K2 on the same state."""
-    op, x = _random_operator(50, dtype, cuda_device)
+@pytest.mark.parametrize("n", [1, 2, 3, 50, 51, 512, 1000])
+def test_k3_extend_and_k4_match_plain_and_k2(cuda_device, dtype, bound, n):
+    """K3 through the row extension and K4 at its tiles against the plain
+    apply and against K2 on the same state, at sizes that are and are not
+    multiples of their points a thread, of 16 bytes and of any tile; then
+    on planes one element past a 16-byte boundary (the point-by-point
+    paths). K3 and K4 run K2's arithmetic at K2's points a thread on
+    register windows of the same values, so they are bit-equal to K2."""
+    op, x = _random_operator(n, dtype, cuda_device, seed=n + 2)
     args = (op.phase_n.cell, op.phase_n.xface_pt, op.phase_n.yface_pt, x,
             op.params, op.grid.dx, op.grid.dy)
     want = cuda_stencil.a_apply_reference(*args)
@@ -324,18 +343,22 @@ def test_k3_extend_and_k4_match_plain_and_k2(cuda_device, dtype, bound):
     assert cuda_stencil.LAUNCHES["a_apply_band"] == \
         before["a_apply_band"] + 1
     _assert_close(got, want, bound)
-    _assert_close(got, k2, bound)
-    # (2, 256): a tile wider than the grid, so its footprint wraps past n
-    for tile in (None, (1, 32), (4, 32), (16, 64), (8, 128), (40, 32),
-                 (2, 256)):
+    assert torch.equal(got, k2)
+    ext = (_extend_rows(args[0], 1), *args[1:3], _extend_rows(x, 1))
+    shifted = (*(_shifted(t) for t in ext), *args[4:], 1)
+    _assert_close(cuda_stencil.a_apply_band(*shifted), want, bound)
+    tiles = _k4_tiles(dtype)
+    for tile in tiles:
         got = cuda_stencil.a_apply_staged(*args, tile=tile)
         _assert_close(got, want, bound)
-        _assert_close(got, k2, bound)
+        assert torch.equal(got, k2), tile
+    shifted = (*(_shifted(t) for t in args[:4]), *args[4:])
+    _assert_close(cuda_stencil.a_apply_staged(*shifted), want, bound)
     assert cuda_stencil.LAUNCHES["a_apply_staged"] == \
-        before["a_apply_staged"] + 7
+        before["a_apply_staged"] + len(tiles) + 1
 
 
-@pytest.mark.parametrize("h", [1, 8])
+@pytest.mark.parametrize("h", [1, 2, 8])
 @pytest.mark.parametrize("dtype,bound", BOUNDS)
 def test_k3_on_a_band_matches_plain_and_k2(cuda_device, dtype, bound, h):
     """A band of n_loc=24 rows of a random n=50 grid, its h halo rows the

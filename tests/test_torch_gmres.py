@@ -93,6 +93,100 @@ def test_restarted_fgmres_matches_jax(restart, aug_k):
     assert_same_solve(got, want)
 
 
+def _aug_probe():
+    """diag(1..12) with A[0,1] = 0.5: its Krylov space from b = 1..12 grows
+    one column an iteration, and A r0 lies in the span of the first two."""
+    A = np.diag(np.arange(1.0, 13.0))
+    A[0, 1] = 0.5
+    return A, np.arange(1.0, 13.0)
+
+
+def test_augmentation_breakdown_is_not_convergence():
+    """A 3-column cycle whose last column is the augmentation r0/||r0||,
+    the first column's own direction: the column breaks down, H is singular
+    and its rotated diagonal is rounding noise. The JAX package's cycle
+    claims convergence with a relres estimate of 0; the port drops the
+    column and reports the true relres of the two good columns, not
+    converged."""
+    A, b = _aug_probe()
+    At, bt = torch.as_tensor(A), torch.as_tensor(b)
+    aug = (bt / torch.linalg.norm(bt))[None]
+    got = krylov._cycle(lambda v: At @ v, bt, torch.zeros_like(bt), 1e-8, 3,
+                        krylov._identity, True, aug=aug)
+    true_rel = float(torch.linalg.norm(bt - At @ got.x) / np.linalg.norm(b))
+    assert not got.converged and got.iters == 2
+    assert got.relres == pytest.approx(true_rel, rel=1e-8)
+    assert true_rel > 1e-2 and np.isfinite(got.x.numpy()).all()
+    Aj, bj = jnp.asarray(A), jnp.asarray(b)
+    want = jax_krylov._fgmres_cycle(lambda v: Aj @ v, bj, jnp.zeros_like(bj),
+                                    1e-8, 3, lambda v: v, True,
+                                    aug=jnp.asarray(aug.numpy()))
+    assert bool(want.converged) and float(want.relres) == 0.0
+
+
+def test_krylov_column_breakdown_with_singular_h_is_not_convergence():
+    """No augmentation: a variable preconditioner whose second direction is
+    a multiple of its first, so A z_1 lies in the span of v_0 and v_1, the
+    column breaks down and H's rotated diagonal is rounding noise, not 0.
+    The cycle ends at the one good column, its relres the true one; it
+    neither claims convergence nor divides by the noise."""
+    rng = np.random.default_rng(4)
+    A = np.diag(np.arange(1.0, 13.0)) + rng.normal(size=(12, 12)) / 4
+    At, bt = torch.as_tensor(A), torch.as_tensor(rng.normal(size=12))
+    first = []
+
+    def M(v):
+        if not first:
+            first.append(v.clone())
+            return v
+        return 3.0 * first[0]
+
+    got = krylov._cycle(lambda v: At @ v, bt, torch.zeros_like(bt), 1e-8, 3,
+                        M, True)
+    true_rel = float(torch.linalg.norm(bt - At @ got.x)
+                     / torch.linalg.norm(bt))
+    assert not got.converged and got.iters == 1
+    assert got.relres == pytest.approx(true_rel, rel=1e-8)
+    assert true_rel > 1e-2
+
+
+def test_augmented_restart_converges_on_the_probe():
+    """fgmres(restart=4, aug_k=2) on the probe's matrix converges to a true
+    relres below tol, in the JAX package's count (no column is lost)."""
+    A, b = _aug_probe()
+    got, want = solve_both(
+        A, b,
+        lambda mv, b: krylov.fgmres(mv, b, tol=1e-8, maxiter=40, restart=4,
+                                    aug_k=2),
+        lambda mv, b: jax_krylov.fgmres(mv, b, tol=1e-8, maxiter=40,
+                                        restart=4, aug_k=2))
+    true_rel = np.linalg.norm(b - A @ got.x.numpy()) / np.linalg.norm(b)
+    assert got.converged and true_rel < 1e-8
+    assert_same_solve(got, want)
+
+
+def test_lost_column_restarts_plain(monkeypatch):
+    """After a cycle that dropped a column (not converged, fewer iterations
+    than the cycle), the restarted solve drops its augmentations: the next
+    cycle runs plain."""
+    A, b = _aug_probe()
+    At = torch.as_tensor(A)
+    seen, cycle = [], krylov._cycle
+
+    def spy(matvec, b, x0, tol, m, M, use_z, orthog="cgs2", aug=None):
+        res = cycle(matvec, b, x0, tol, m, M, use_z, orthog, aug)
+        seen.append((0 if aug is None else aug.shape[0], res.iters))
+        if len(seen) == 2:      # as if the second cycle lost its column
+            res = res._replace(iters=res.iters - 1, converged=False)
+        return res
+
+    monkeypatch.setattr(krylov, "_cycle", spy)
+    got = krylov.fgmres(lambda v: At @ v, torch.as_tensor(b), tol=1e-8,
+                        maxiter=40, restart=4, aug_k=2)
+    assert [k for k, _ in seen[:4]] == [0, 1, 0, 1]
+    assert got.converged
+
+
 def test_cg_matches_jax():
     A, b = spd()
     got, want = solve_both(

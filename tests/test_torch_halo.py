@@ -155,3 +155,38 @@ def test_wrong_shapes_dtypes_and_tiles_raise():
                        ("pipelined", (8, 40)), ("rolled", None)):
         with pytest.raises(ValueError):
             fused.make_fused_apply_kernel(op, halo, tile=tile)
+
+
+@pytest.mark.parametrize("dtype,lead", [(torch.float32, 4),
+                                        (torch.float64, 2)])
+def test_k4_footprint_rows_put_the_tile_on_16_byte_boundaries(dtype, lead):
+    """K4's shared-memory layout: a footprint row is the tile's columns
+    between two 16-byte leads (the left halo column ends the first, the
+    right halo column starts the second), so the tile's first column and
+    every row start 16-byte aligned; two slots of 6 planes of rows+2
+    footprint rows; the default tile fits in either dtype."""
+    size = dtype.itemsize
+    assert lead * size == 16
+    for tc in (32, 64, 96, 128, 256):
+        ld = cuda_stencil.staged_row_stride(tc, dtype)
+        assert ld == tc + 2 * lead and ld * size % 16 == 0
+        assert cuda_stencil.staged_smem_bytes((5, tc), dtype) == \
+            2 * 6 * 7 * ld * size
+    tile = cuda_stencil.STAGED_TILE
+    assert cuda_stencil.check_tile(None, dtype) == tile
+    assert cuda_stencil.staged_smem_bytes(tile, dtype) <= \
+        cuda_stencil._SMEM_OPTIN_MAX
+
+
+@pytest.mark.parametrize("tile,dtype,fits", [
+    ((16, 128), torch.float32, True), ((32, 128), torch.float32, True),
+    ((64, 128), torch.float32, False), ((16, 128), torch.float64, True),
+    ((32, 64), torch.float64, True), ((32, 128), torch.float64, False)])
+def test_check_tile_holds_two_slots_within_shared_memory(tile, dtype, fits):
+    """The largest tiles: 16x128 f64 takes 228,096 of the 232,448 bytes a
+    block may opt in to; 32x128 f64 would take 430,848."""
+    if fits:
+        assert cuda_stencil.check_tile(tile, dtype) == tile
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_stencil.check_tile(tile, dtype)

@@ -253,3 +253,21 @@ def test_pressure_projected_block_pc_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(jM(jnp.asarray(v))),
                                rtol=1e-13, atol=1e-13)
     assert abs(float(got[4 * n * n:].mean())) < 1e-14
+
+
+def test_unhashable_pc_kwargs_skip_the_setup_memo():
+    """A list-valued pc_kwargs entry cannot key the setup memo: the solve
+    runs unmemoized (the JAX package's guard) and takes the same iterations
+    as the memoized solve with the same value as an int."""
+    from mpbp_tpu_torch import drivers
+
+    kw = dict(n=8, eta_n=100.0, pc="lsc_mg_full", tol=1e-8, maxiter=50,
+              device="cpu")
+    drivers._SETUP_CACHE.clear()
+    got = solve_multiphase(**kw, ilut_fill=[400])
+    assert not drivers._SETUP_CACHE
+    want = solve_multiphase(**kw, ilut_fill=400)
+    assert len(drivers._SETUP_CACHE) == 1
+    assert got.converged and got.iters == want.iters
+    assert got.error_norms["l2"] == want.error_norms["l2"]
+    drivers._SETUP_CACHE.clear()
