@@ -31,9 +31,10 @@ yardstick only, the port never calls it.
   8. sparse_kernels - K5/K6 (dia_spmv) at benchmarks/kernels_tpu.py's
                sizes; K7 (ell_spmv on compressed rows, plain, with the
                Jacobi epilogue, and a solve's 24 sweeps from one host
-               call) on GtG's n=256 ILUT U factor; K8 (ell_spmm)
-               on BandedELL of GtG, with torch.sparse.mm beside it; then
-               the BandedELL SpMM API run as a path.
+               call) on GtG's n=256 ILUT U factor; K8 (ell_spmm on
+               compressed rows) on BandedELL of GtG at n=256 and 1024,
+               k=16, with torch.sparse.mm beside it; then the BandedELL
+               SpMM API run as a path.
   9. ilu_slice - path (a): the n=64 lsc_ilut solve with Neumann triangular
                solves (every sweep one K7 launch), cold then warm; then
                ilu_layers: K7 against its plain version on the four
@@ -75,7 +76,6 @@ The line before the last is the kernels' JSON summary; the last line is
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import statistics
 import subprocess
@@ -148,9 +148,11 @@ ILU_LEVEL_ITERS, ILU_LEVEL_L2 = 45, 2.27e-2
 # iterations to L2 3.68351e-4 (it does not converge at n=256 with these
 # inner settings)
 DIA_LSC_N, DIA_LSC_L2, DIA_LSC_MAX_ITERS = 128, 3.68351e-4, 40
-# sparse_kernels sizes: the multiphase A (and G) as DIA, GtG's ILU factor
-# and GtG as ELL, the SpMM block width
+# sparse_kernels sizes: the multiphase A (and G) as DIA, GtG's ILU factor,
+# GtG as ELL for K8 (kernels_tpu.py's n=256, in L2, and n=1024, from HBM)
+# and the SpMM block width
 SPARSE_DIA_N, SPARSE_ELL_N, SPARSE_K = (512, 1024), 256, 16
+SPMM_N = (256, 1024)
 # halo_kernels: K3 on rows BAND_R0.. of a random n=BAND_N grid, K3 through
 # the row extension and K4 at these sizes (1000: no multiple of any tile)
 BAND_N, BAND_ROWS, BAND_H, BAND_R0 = 512, 64, 8, 200
@@ -650,7 +652,8 @@ def compare_sweeps(phase: str, factors: dict, rng) -> dict:
     G: plain (y = S x, with the library call, the triangle as CSR @ x), in
     its Jacobi-epilogue mode (one Neumann sweep), and the solve's `sweeps`
     sweeps from one host call (`ell_sweeps`, what the path launches)
-    against the plain sweep repeated from x = inv_d b. GB/s and the bound
+    against the plain sweep repeated from x = inv_d b (its library call:
+    the same sweeps with CSR @ x, in one timed window). GB/s and the bound
     count the real entries (a value and a 4-byte column each), N+1 row
     pointers and x, y (and b, inv_d with the epilogue), once a sweep. Each
     row names G and the longest row."""
@@ -691,11 +694,50 @@ def compare_sweeps(phase: str, factors: dict, rng) -> dict:
                     y = cuda_ell.ell_spmv_reference(A, y, b, inv_d)
                 return y
 
+            def lib_sweeps(csr=csr, b=b, inv_d=inv_d):
+                y = inv_d * b
+                for _ in range(sweeps):
+                    y = inv_d * (b - csr @ y)
+                return y
+
             res[(label, "sweeps", dtype)] = _compare(
                 "ell_spmv", f"{label}, {sweeps} sweeps (ell_sweeps)", dtype,
                 lambda: cuda_ell.ell_sweeps(A, b, inv_d, sweeps),
                 plain_sweeps, sweeps * (base + 4 * N * elt), phase,
-                flops=sweeps * (2 * nnz + 2 * N), extra=info)
+                flops=sweeps * (2 * nnz + 2 * N), lib=lib_sweeps,
+                extra=info)
+    return res
+
+
+def compare_spmm(phase: str, label: str, csr, rng) -> dict:
+    """K8 against its plain version on the compressed rows of BandedELL of
+    `csr` (what `BandedELL.matmat` hands it), f32 and f64, with
+    torch.sparse.mm on the CSR as the library call. The bound counts the
+    real entries (value and 4-byte column), X and Y once; GB/s also counts
+    the N+1 row pointers the kernel reads. Each row names the launch plan
+    (16-byte chunks or not, column lanes, lanes a row)."""
+    bell = BandedELL.from_csr(csr)
+    rows64 = bell.ell.compressed
+    N, nnz, k = rows64.shape[0], rows64.nnz, SPARSE_K
+    check(nnz == csr.nnz, f"{label}: compressed rows hold {nnz} entries, "
+          f"the CSR {csr.nnz}")
+    X64 = torch.as_tensor(rng.normal(size=(N, k)), device=rows64.vals.device)
+    lib64 = csr_of(csr)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        A, X = rows64.astype(dtype), X64.to(dtype)
+        lib = _astype(lib64, dtype)
+        elt = X.element_size()
+        vec, col_lanes, group = cuda_ell.spmm_plan(k, dtype, nnz / N, True)
+        res[("ell_spmm", label, dtype)] = _compare(
+            "ell_spmm", f"{label} k={k}", dtype,
+            lambda: cuda_ell.ell_spmm(A, X),
+            lambda: cuda_ell.ell_spmm_reference(A, X),
+            nnz * (elt + 4) + (N + 1) * 4 + 2 * N * k * elt, phase,
+            flops=2 * nnz * k, lib=lambda: torch.sparse.mm(lib, X),
+            extra=dict(nnz=nnz, padded_width=bell.ell.width, vec=vec,
+                       col_lanes=col_lanes, group=group),
+            bound_bytes=nnz * (elt + 4) + 2 * N * k * elt)
     return res
 
 
@@ -705,10 +747,10 @@ def phase_sparse_kernels(dev) -> dict:
     ilu_layers and dia_lsc): DIA on A.to_dia() at n=512 (N=1,310,720,
     K=35) and n=1024 (N=5,242,880) and on the rectangular, signed-offset G
     at n=512; K7 on the compressed rows of GtG's ILUT(100, 1e-3) U factor
-    at n=256 (N=65,536), plain and with the epilogue; K8 on BandedELL of
-    GtG (n=256, k=16), with torch.sparse.mm beside it, then the BandedELL
-    SpMM API run as a path. K8's GB/s counts its slot-major operand, W N
-    (elt + 4 B) + 2 N k elements; its bound counts the real entries."""
+    at n=256 (N=65,536), plain and with the epilogue; K8 on the compressed
+    rows of BandedELL of GtG at n=256 (kernels_tpu.py's size) and n=1024
+    (N=1,048,576), k=16, with torch.sparse.mm beside it, then the
+    BandedELL SpMM API run as a path."""
     rng = np.random.default_rng(0)
     res = {}
     dias = {}
@@ -734,38 +776,33 @@ def phase_sparse_kernels(dev) -> dict:
         host_ilut_s=f"{time.perf_counter() - t0:.2f}")
     res.update(compare_sweeps("sparse_kernels", {
         f"GtG n={SPARSE_ELL_N} ILUT(100, 1e-3) U": upper}, rng))
+    for n in SPMM_N:
+        if n != SPARSE_ELL_N:
+            op = make_multiphase_operator(n, eta_n=100.0, device=dev)
+            gtg_n = (op.minus_D @ op.G).to_csr(drop_tol=1e-14)
+            del op
+        else:
+            gtg_n = gtg
+        res.update(compare_spmm("sparse_kernels", f"GtG n={n}", gtg_n, rng))
     bell = BandedELL.from_csr(gtg)
     N, k = gtg.shape[0], SPARSE_K
     X64 = torch.as_tensor(rng.normal(size=(N, k)), device=dev)
-    gtg_csr = csr_of(gtg)
-    nnz = gtg.nnz
-    for dtype in (torch.float32, torch.float64):
-        # K8 on the arrays BandedELL.matmat hands it below; the bound
-        # counts the real entries (value and 4-byte column) and X, Y
-        scols, svals = bell.ell.cols, bell.ell.vals.to(dtype)
-        X = X64.to(dtype)
-        elt = X.element_size()
-        csr = _astype(gtg_csr, dtype)
-        res[("ell_spmm", "GtG", dtype)] = _compare(
-            "ell_spmm", f"BandedELL of GtG n={SPARSE_ELL_N} k={k}", dtype,
-            lambda: cuda_ell.ell_spmm(scols, svals, X),
-            lambda: cuda_ell.ell_spmm_reference(scols, svals, X),
-            bell.ell.width * N * (elt + 4) + 2 * N * k * elt,
-            flops=2 * nnz * k, lib=lambda: torch.sparse.mm(csr, X),
-            extra=dict(nnz=nnz, width=bell.ell.width),
-            bound_bytes=nnz * (elt + 4) + 2 * N * k * elt)
 
     # the layer's SpMM API as a path: GtG applied to a block of k vectors
-    # through BandedELL, with the counts of that run alone
+    # through BandedELL, with the counts of that run alone; held against
+    # the plain K8 on every column and the CSR matvec on the last
     torch.cuda.synchronize()
     _reset_counts()
     Y = bell.matmat(X64)
     torch.cuda.synchronize()
     launches = dict(cuda_ell.LAUNCHES)
-    want = gtg.matvec(X64[:, -1])
-    check(float((Y[:, -1] - want).abs().max())
-          <= BOUND[torch.float64] * float(want.abs().max()),
-          "BandedELL.matmat disagrees with the CSR matvec")
+    for got, want in (
+            (Y, cuda_ell.ell_spmm_reference(bell.ell.compressed, X64)),
+            (Y[:, -1], gtg.matvec(X64[:, -1]))):
+        check(got.shape == want.shape and float((got - want).abs().max())
+              <= BOUND[torch.float64] * float(want.abs().max()),
+              "BandedELL.matmat disagrees with the plain K8 or the CSR "
+              "matvec")
     check(launches["ell_spmm"] > 0, "BandedELL.matmat did not launch K8")
     say("sparse_kernels",
         path=f"BandedELL.matmat (GtG n={SPARSE_ELL_N}, k={k})",
@@ -1316,7 +1353,7 @@ def main() -> None:
          ilu_runs["warm"]["launches"]["ell_spmv"]),
         ("ell_spmm", f"K8, f64, BandedELL.matmat path: GtG "
          f"n={SPARSE_ELL_N}, k={SPARSE_K}",
-         sres[("ell_spmm", "GtG", torch.float64)],
+         sres[("ell_spmm", f"GtG n={SPARSE_ELL_N}", torch.float64)],
          sres["spmm_path_launches"]))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,7 @@
 // stream 1.07 values a nonzero at n=512, where all 35 diagonals streamed
 // 3.1), each tile-diagonal's values contiguous, so the 32 threads of a
 // warp, one row each, read 32 consecutive values; its x reads are
-// contiguous too, and L2 (50 MB) serves x's re-reads. The ELL SpMM's data
-// is slot-major (W, nrows), read the same way.
+// contiguous too, and L2 (50 MB) serves x's re-reads.
 //
 // K7 reads only the real entries, in compressed rows (int32 row pointers,
 // columns and values): its bound is the bytes of the real entries, which a
@@ -29,6 +28,17 @@
 // by __shfl_down_sync; the group's first lane applies the epilogue. So a
 // matrix of N rows runs N*G threads, and F's 16,384 rows fill the card's
 // 132 SMs with 16,384 warps where one thread per row gave 64 blocks.
+//
+// K8 (Y = A X, X of k columns) reads the same compressed rows: each real
+// entry once per column tile, and no X row for padding (GtG's padded ELL
+// has 7 slots a row for 5 entries). A group of lanes owns a row, each lane
+// a 16-byte chunk of the k columns where k and X allow (four f32 or two
+// f64 sums in registers, one 16-byte load of X an entry, one 16-byte store
+// of Y), else one column. The group loads its row's entries one a lane
+// and passes them round by __shfl_sync, so an entry is loaded once a group
+// and not once a column. What bounds it is the bytes of the real entries,
+// X and Y; X's rows are gathered, and L2 serves their re-reads (GtG's
+// entries lie at row offsets 0, +-1 and +-n).
 //
 // The TPU kernels' machinery stays behind: the doubled x that avoided a
 // modulo, the 128-lane band/residue encoding, the streamed VMEM windows
@@ -160,24 +170,144 @@ __global__ void __launch_bounds__(kThreads)
   if (live && lane == 0) y[row] = kEpilogue ? inv_d[row] * (b[row] - acc) : acc;
 }
 
-// Y[i, c] = sum_w vals[w, i] * X[cols[w, i], c], X and Y row-major with k
-// columns; one thread per (i, c), c fastest, so a warp reads consecutive
-// columns of one X row.
-template <typename T>
-__global__ void ell_spmm_kernel(const int32_t* __restrict__ cols,
-                                const T* __restrict__ vals, int W,
-                                int64_t nrows, int64_t k,
-                                const T* __restrict__ X, T* __restrict__ Y) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (t >= nrows * k) return;
-  const int64_t i = t / k;
-  const int64_t c = t - i * k;
-  T acc = T(0);
-  for (int w = 0; w < W; ++w) {
-    const int64_t p = w * nrows + i;
-    acc += vals[p] * X[static_cast<int64_t>(cols[p]) * k + c];
+__host__ __device__ constexpr int ilog2(int v) {
+  return v <= 1 ? 0 : 1 + ilog2(v / 2);
+}
+
+// The chunk of X and Y columns one K8 lane owns: 16 bytes (four f32 or two
+// f64) on the vector path, one element on the scalar one: `accumulate`
+// adds v times the chunk of one X row to the lane's sums.
+template <typename T, bool kVec>
+struct Chunk {
+  static constexpr int n = 1;
+  __device__ __forceinline__ static void accumulate(
+      T (&acc)[n], T v, const T* __restrict__ x) {
+    acc[0] += v * __ldg(x);
   }
-  Y[t] = acc;
+  __device__ __forceinline__ static void store(const T (&acc)[n], T* y) {
+    y[0] = acc[0];
+  }
+};
+template <>
+struct Chunk<float, true> {
+  static constexpr int n = 4;
+  __device__ __forceinline__ static void accumulate(
+      float (&acc)[n], float v, const float* __restrict__ x) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(x));
+    acc[0] += v * q.x;
+    acc[1] += v * q.y;
+    acc[2] += v * q.z;
+    acc[3] += v * q.w;
+  }
+  __device__ __forceinline__ static void store(const float (&acc)[n],
+                                               float* y) {
+    *reinterpret_cast<float4*>(y) = make_float4(acc[0], acc[1], acc[2],
+                                                acc[3]);
+  }
+};
+template <>
+struct Chunk<double, true> {
+  static constexpr int n = 2;
+  __device__ __forceinline__ static void accumulate(
+      double (&acc)[n], double v, const double* __restrict__ x) {
+    const double2 q = __ldg(reinterpret_cast<const double2*>(x));
+    acc[0] += v * q.x;
+    acc[1] += v * q.y;
+  }
+  __device__ __forceinline__ static void store(const double (&acc)[n],
+                                               double* y) {
+    *reinterpret_cast<double2*>(y) = make_double2(acc[0], acc[1]);
+  }
+};
+
+// K8: Y[r, :] = sum_{p in [rowptr[r], rowptr[r+1])} vals[p] * X[cols[p], :]
+// over compressed rows, X (ncols, k) and Y (nrows, k) row-major. A group
+// of G lanes owns a row: kCL column lanes, each owning one chunk of the
+// columns (blockIdx.y picks the tile of kCL chunks), times E = G / kCL
+// entry sublanes. The group reads its row's entries a batch at a time, one
+// coalesced load of values and one of columns, and hands each entry to the
+// lanes that use it by __shfl_sync; each lane gathers its chunk of the
+// entry's X row with one load (16 bytes on the vector path), keeps the
+// chunk's sums in registers and stores them (one 16-byte store on the
+// vector path).
+//   kCL >= 4: G = kCL and E = 1. A batch holds kR * G entries (kR = 8 /
+//     kCL for 4 lanes, else 1; GtG's 5 entries a row are one batch), kR a
+//     lane, and the batch's loop is unrolled. Every chunk sums the row's
+//     entries in their order, as a loop over the padded ELL slots does, so
+//     the two agree bit for bit on finite data (fma(0, x, acc) == acc).
+//   kCL < 4: G = 2^log_g (chosen on the host from the mean row) and
+//     sublane e takes the entries e*kCL .. e*kCL+kCL-1 of each batch of G;
+//     the sublanes' sums are added by __shfl_down_sync.
+// Loop bounds and the guard of each entry are uniform within a group,
+// whose lanes shuffle under the group's own mask, so groups of one warp
+// may run rows of other lengths. No thread returns early.
+template <typename T, bool kVec, int kCL>
+__global__ void __launch_bounds__(kThreads)
+    rows_spmm_kernel(const int32_t* __restrict__ rowptr,
+                     const int32_t* __restrict__ cols,
+                     const T* __restrict__ vals, int64_t nrows, int log_g,
+                     int64_t k, const T* __restrict__ X,
+                     T* __restrict__ Y) {
+  using C = Chunk<T, kVec>;
+  constexpr bool kSplit = kCL < 4;
+  constexpr int kR = kSplit || kCL >= 8 ? 1 : 8 / kCL;
+  const int lg = kSplit ? log_g : ilog2(kCL);
+  const int G = 1 << lg;
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int64_t row = t >> lg;
+  const int l = static_cast<int>(threadIdx.x) & (G - 1);
+  const int e = l / kCL;
+  const int64_t col0 =
+      (static_cast<int64_t>(blockIdx.y) * kCL + l % kCL) * C::n;
+  const bool live = row < nrows;
+  const bool owns = col0 < k;
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned mask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1u));
+  const int start = live ? __ldg(rowptr + row) : 0;
+  const int end = live ? __ldg(rowptr + row + 1) : 0;
+  const T* __restrict__ xc = X + col0;
+  T acc[C::n];
+#pragma unroll
+  for (int i = 0; i < C::n; ++i) acc[i] = T(0);
+  for (int p0 = start; p0 < end; p0 += kR * G) {
+    T v[kR];
+    int c[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int p = p0 + r * G + l;
+      v[r] = p < end ? __ldg(vals + p) : T(0);
+      c[r] = p < end ? __ldg(cols + p) : 0;
+    }
+    if constexpr (kSplit) {
+      const int cnt = min(G, end - p0);
+      const int jn = min(kCL, cnt);
+      for (int j = 0; j < jn; ++j) {
+        const int src = e * kCL + j;
+        const T vj = __shfl_sync(mask, v[0], src, G);
+        const int cj = __shfl_sync(mask, c[0], src, G);
+        if (owns && src < cnt)
+          C::accumulate(acc, vj, xc + static_cast<int64_t>(cj) * k);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kR * kCL; ++j) {
+        if (p0 + j < end) {
+          const T vj = __shfl_sync(mask, v[j / kCL], j % kCL, kCL);
+          const int cj = __shfl_sync(mask, c[j / kCL], j % kCL, kCL);
+          if (owns) C::accumulate(acc, vj, xc + static_cast<int64_t>(cj) * k);
+        }
+      }
+    }
+  }
+  if constexpr (kSplit) {
+    for (int off = G >> 1; off >= kCL; off >>= 1) {
+#pragma unroll
+      for (int i = 0; i < C::n; ++i)
+        acc[i] += __shfl_down_sync(mask, acc[i], off, G);
+    }
+  }
+  if (live && owns && e == 0) C::store(acc, Y + row * k + col0);
 }
 
 template <typename T>
@@ -266,14 +396,74 @@ int ell_sweeps(const void* rowptr, const void* cols, const void* vals,
 }
 
 
+bool pow2_in(int v, int lo, int hi) {
+  return v >= lo && v <= hi && (v & (v - 1)) == 0;
+}
+
 template <typename T>
-int ell_spmm(const void* cols, const void* vals, int W, int64_t nrows,
-             int64_t k, const void* X, void* Y, void* stream) {
-  ell_spmm_kernel<T><<<blocks_for(nrows * k), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cols), static_cast<const T*>(vals), W,
-      nrows, k, static_cast<const T*>(X), static_cast<T*>(Y));
+struct SpmmArgs {
+  const int32_t* rowptr;
+  const int32_t* cols;
+  const T* vals;
+  int64_t nrows;
+  int log_g;
+  int64_t k;
+  const T* X;
+  T* Y;
+  dim3 grid;
+  cudaStream_t stream;
+};
+
+template <typename T, int kCL>
+int spmm_launch(const SpmmArgs<T>& a, int vec) {
+  if (vec) {
+    rows_spmm_kernel<T, true, kCL><<<a.grid, kThreads, 0, a.stream>>>(
+        a.rowptr, a.cols, a.vals, a.nrows, a.log_g, a.k, a.X, a.Y);
+  } else {
+    rows_spmm_kernel<T, false, kCL><<<a.grid, kThreads, 0, a.stream>>>(
+        a.rowptr, a.cols, a.vals, a.nrows, a.log_g, a.k, a.X, a.Y);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K8's launch: `group` lanes a row (a power of two, 1-32) of which
+// `col_lanes` (a power of two, at most group) own a chunk of columns each;
+// `vec` selects 16-byte chunks, which needs k a multiple of a chunk and X
+// and Y 16-byte aligned. Column tiles of col_lanes chunks run along
+// gridDim.y. The host (ops/cuda_ell.spmm_plan) chooses the three.
+template <typename T>
+int ell_spmm(const void* rowptr, const void* cols, const void* vals,
+             int64_t nrows, int group, int col_lanes, int vec, int64_t k,
+             const void* X, void* Y, void* stream) {
+  constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
+  if (!pow2_in(group, 1, 32) || !pow2_in(col_lanes, 1, group))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec && (k % kChunk != 0 || reinterpret_cast<uintptr_t>(X) % 16 != 0
+              || reinterpret_cast<uintptr_t>(Y) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nrows == 0 || k == 0) return 0;
+  const int log_g = __builtin_ctz(static_cast<unsigned>(group));
+  const int log_cl = __builtin_ctz(static_cast<unsigned>(col_lanes));
+  if (col_lanes >= 4 && group != col_lanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t chunks = vec ? k / kChunk : k;
+  const int64_t tiles = (chunks + col_lanes - 1) >> log_cl;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const SpmmArgs<T> a{static_cast<const int32_t*>(rowptr),
+                      static_cast<const int32_t*>(cols),
+                      static_cast<const T*>(vals), nrows, log_g, k,
+                      static_cast<const T*>(X), static_cast<T*>(Y),
+                      dim3(blocks_for(nrows << log_g),
+                           static_cast<unsigned>(tiles)),
+                      static_cast<cudaStream_t>(stream)};
+  switch (col_lanes) {
+    case 1: return spmm_launch<T, 1>(a, vec);
+    case 2: return spmm_launch<T, 2>(a, vec);
+    case 4: return spmm_launch<T, 4>(a, vec);
+    case 8: return spmm_launch<T, 8>(a, vec);
+    case 16: return spmm_launch<T, 16>(a, vec);
+    default: return spmm_launch<T, 32>(a, vec);
+  }
 }
 
 }  // namespace
@@ -322,14 +512,18 @@ int ell_sweeps_f64(const void* rowptr, const void* cols, const void* vals,
                             buf1, sweeps, stream);
 }
 
-int ell_spmm_f32(const void* cols, const void* vals, int W, int64_t nrows,
-                 int64_t k, const void* X, void* Y, void* stream) {
-  return ell_spmm<float>(cols, vals, W, nrows, k, X, Y, stream);
+int ell_spmm_f32(const void* rowptr, const void* cols, const void* vals,
+                 int64_t nrows, int group, int col_lanes, int vec, int64_t k,
+                 const void* X, void* Y, void* stream) {
+  return ell_spmm<float>(rowptr, cols, vals, nrows, group, col_lanes, vec, k,
+                         X, Y, stream);
 }
 
-int ell_spmm_f64(const void* cols, const void* vals, int W, int64_t nrows,
-                 int64_t k, const void* X, void* Y, void* stream) {
-  return ell_spmm<double>(cols, vals, W, nrows, k, X, Y, stream);
+int ell_spmm_f64(const void* rowptr, const void* cols, const void* vals,
+                 int64_t nrows, int group, int col_lanes, int vec, int64_t k,
+                 const void* X, void* Y, void* stream) {
+  return ell_spmm<double>(rowptr, cols, vals, nrows, group, col_lanes, vec,
+                          k, X, Y, stream);
 }
 
 const char* sparse_spmv_error_string(int code) {

@@ -47,8 +47,9 @@ _ELL_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P]
 # ell_sweeps: rowptr, cols, vals, nrows, group, b, inv_d, buf0, buf1,
 # sweeps, stream
 _SWEEPS_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _I32, _P]
-# ell_spmm: cols, vals, W, nrows, k, X, Y, stream
-_SPMM_ARGS = [_P, _P, _I32, _I64, _I64, _P, _P, _P]
+# ell_spmm: rowptr, cols, vals, nrows, group, col_lanes, vec, k, X, Y,
+# stream
+_SPMM_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I64, _P, _P, _P]
 
 
 def _both(name: str, args: list) -> dict:

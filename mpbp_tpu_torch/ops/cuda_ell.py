@@ -1,6 +1,6 @@
 """Kernels K7 (sparse matrix-vector product over compressed rows) and K8
 (ELL SpMM): hand-written CUDA for Hopper (`csrc/sparse_spmv.cu`, entry
-points ell_spmv_* and ell_spmm_*), their plain PyTorch versions, K7's
+points ell_spmv_* and ell_spmm_*), their plain PyTorch versions, their
 operand `CompressedRows` and the `BandedELL` container.
 
 Replaces `mpbp_tpu/ops/pallas_ell.py`:
@@ -8,18 +8,19 @@ Replaces `mpbp_tpu/ops/pallas_ell.py`:
     `inv_d` it also applies the Jacobi epilogue inv_d * (b - A x), so one
     Neumann sweep of a triangular solve (`ops/trisolve.py`) is one launch;
     `ell_sweeps` makes all the sweeps of one solve in one host call.
-  * `ell_spmm` (K8) replaces `ell_spmm_pallas`: A @ X for X (N, k), one
-    thread per output entry, gathering X rows (no one-hot MXU patch).
+  * `ell_spmm` (K8) replaces `ell_spmm_pallas`: A @ X for X (ncols, k),
+    gathering X rows (no one-hot MXU patch).
 
-K7 reads `CompressedRows`: the real entries only, in row order, with int32
-row pointers, columns and values on the device, and no padding. The ILU
-factors it sweeps have rows of very unequal length (F's at n=64: mean 125,
-longest 400), so an ELL block padded to the longest row streams mostly
-zeros. A group of `group` lanes (a power of two, 2-32, chosen from the
-mean row length and the value type when the operand is built) shares
-each row. K8 still takes plain slot-major ELL, `cols` and `vals` (W,
-nrows) with absolute int32 columns (`ops/sparse.ELLMatrix`); padding
-slots carry value 0.
+Both read `CompressedRows`: the real entries only, in row order, with
+int32 row pointers, columns and values on the device, and no padding. The
+ILU factors K7 sweeps have rows of very unequal length (F's at n=64: mean
+125, longest 400), so an ELL block padded to the longest row streams
+mostly zeros; GtG, K8's operand, pads 5 entries a row to 7 slots. For K7
+a group of `group` lanes (a power of two, 2-32, chosen from the mean row
+length and the value type when the operand is built) shares each row.
+For K8 a group shares each row too, each lane owning a chunk of X's
+columns; `spmm_plan` chooses the group and the chunk from k, the value
+type, X's alignment and the mean row length at each call.
 `BandedELL` keeps the JAX package's 128-lane band and residue layout for
 parity; `to_ell()` turns it into absolute columns. The band encoding, the
 doubled x and the VMEM gates existed for Mosaic only.
@@ -58,9 +59,9 @@ def group_size(mean_row: float, dtype: torch.dtype) -> int:
 
 @dataclasses.dataclass(eq=False)
 class CompressedRows:
-    """K7's operand: the real entries of an (N, ncols) sparse matrix in
-    row order. `rowptr` (N+1,), `cols` (nnz,) int32 and `vals` (nnz,) lie
-    on one device; `group` is the kernel's lanes per row."""
+    """K7's and K8's operand: the real entries of an (N, ncols) sparse
+    matrix in row order. `rowptr` (N+1,), `cols` (nnz,) int32 and `vals`
+    (nnz,) lie on one device; `group` is K7's lanes per row."""
 
     shape: tuple[int, int]
     rowptr: torch.Tensor   # (N+1,) int32
@@ -131,15 +132,37 @@ def ell_spmv_reference(A: CompressedRows, x: torch.Tensor,
     return acc if b is None else inv_d * (b - acc)
 
 
-def ell_spmm_reference(cols: torch.Tensor, vals: torch.Tensor,
-                       X: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K8 on slot-major (W, N) arrays: one gathered X-row
-    multiply-add per slot."""
-    Y = torch.zeros((cols.shape[1], X.shape[1]), dtype=X.dtype,
-                    device=X.device)
-    for w in range(cols.shape[0]):
-        Y += vals[w, :, None] * X[cols[w]]
-    return Y
+def ell_spmm_reference(A: CompressedRows, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K8: the segment sum of vals * X[cols] over each row
+    (`index_add_`, as `ell_spmv_reference`)."""
+    Y = torch.zeros((A.shape[0], X.shape[1]), dtype=X.dtype, device=X.device)
+    return Y.index_add_(0, A.rows, A.vals[:, None] * X[A.cols])
+
+
+def _pow2_at_least(v: float) -> int:
+    p = 1
+    while p < v:
+        p *= 2
+    return p
+
+
+def spmm_plan(k: int, dtype: torch.dtype, mean_row: float,
+              aligned: bool) -> tuple[bool, int, int]:
+    """K8's launch shape, (vec, col_lanes, group), for X of k columns.
+    `vec`: each lane owns a 16-byte chunk (four f32 or two f64 columns),
+    which needs k a multiple of the chunk and X 16-byte `aligned`; else one
+    column. `col_lanes`: the least power of two, at most 32, whose lanes
+    cover k's chunks (more chunks run as column tiles). `group`: lanes a
+    row; with four or more column lanes it is `col_lanes`, so each sum
+    takes the row's entries in their order, and with one or two the row's
+    entries are split over the least power of two of lanes, at most 32,
+    that covers the mean row (as K7 does)."""
+    chunk = 128 // torch.finfo(dtype).bits
+    vec = aligned and k % chunk == 0
+    col_lanes = min(_MAX_GROUP, _pow2_at_least(k // chunk if vec else k))
+    group = col_lanes if col_lanes >= 4 else max(
+        col_lanes, min(_MAX_GROUP, _pow2_at_least(mean_row)))
+    return vec, col_lanes, group
 
 
 def _check_operands(name, vals, indices, vecs) -> None:
@@ -228,30 +251,30 @@ def ell_sweeps(A: CompressedRows, b: torch.Tensor, inv_d: torch.Tensor,
     return buf[sweeps % 2]
 
 
-def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
-             X: torch.Tensor) -> torch.Tensor:
-    """K8: A @ X for slot-major ELL (cols int32 (W, N), vals (W, N)) and
-    row-major X (ncols, k) -> (N, k). Kernel on CUDA, plain version on
+def ell_spmm(A: CompressedRows, X: torch.Tensor) -> torch.Tensor:
+    """K8: A @ X over compressed rows for row-major X (ncols, k) -> (N, k).
+    An X of another row count raises ValueError on every device (the JAX
+    package's gather clamps it instead). Kernel on CUDA, plain version on
     CPU."""
-    if cols.dim() != 2 or tuple(vals.shape) != tuple(cols.shape):
-        raise ValueError(f"ell_spmm: cols and vals must both be (W, N), got "
-                         f"{tuple(cols.shape)} and {tuple(vals.shape)}")
-    if cols.dtype != torch.int32:
-        raise TypeError(f"ell_spmm: cols must be int32, got {cols.dtype}")
-    _check_operands("ell_spmm", vals, (cols,), (X,))
-    if X.dim() != 2:
-        raise ValueError(f"ell_spmm: X must be (ncols, k), got "
-                         f"{tuple(X.shape)}")
+    if A.rowptr.dtype != torch.int32 or A.cols.dtype != torch.int32:
+        raise TypeError("ell_spmm: rowptr and cols must be int32")
+    _check_operands("ell_spmm", A.vals, (A.rowptr, A.cols), (X,))
+    if X.dim() != 2 or X.shape[0] != A.shape[1]:
+        raise ValueError(f"ell_spmm: X must be ({A.shape[1]}, k) for an "
+                         f"operand of shape {A.shape}, got {tuple(X.shape)}")
     if X.device.type == "cpu":
-        return ell_spmm_reference(cols, vals, X)
-    _check_cuda("ell_spmm", cols, vals, X)
-    N, k = cols.shape[1], X.shape[1]
+        return ell_spmm_reference(A, X)
+    _check_cuda("ell_spmm", A.rowptr, A.cols, A.vals, X)
+    N, k = A.shape[0], X.shape[1]
     Y = torch.empty((N, k), dtype=X.dtype, device=X.device)
     if N * k == 0:
         return Y
+    vec, col_lanes, group = spmm_plan(k, X.dtype, A.nnz / N,
+                                      X.data_ptr() % 16 == 0)
     _build.launch("sparse_spmv", f"ell_spmm_{_SUFFIX[X.dtype]}", X.device,
-                  cols.data_ptr(), vals.data_ptr(), cols.shape[0], N, k,
-                  X.data_ptr(), Y.data_ptr())
+                  A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
+                  N, group, col_lanes, int(vec), k, X.data_ptr(),
+                  Y.data_ptr())
     LAUNCHES["ell_spmm"] += 1
     return Y
 
@@ -354,5 +377,6 @@ class BandedELL:
         return self.ell.matvec(x)
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
-        """A @ X for X (N, k) through K8 (plain version on CPU)."""
+        """A @ X for X (N, k) through K8 on the compressed rows of `ell`
+        (plain version on CPU)."""
         return self.ell.matmat(X)

@@ -6,8 +6,8 @@ numeric payloads (and the column indices) are tensors on an explicit
 device. CSR is the host/setup format: `from_coo` and `host_arrays` are the
 JAX package's numpy code, so a CSR exported here equals the JAX package's
 bit for bit (the native ILUT drops entries by magnitude). ELL is the device
-format: `ELLMatrix.matvec` runs kernel K7 on the matrix's compressed rows
-and `matmat` kernel K8 (`ops/cuda_ell.py`) on a CUDA tensor.
+format: `ELLMatrix.matvec` and `matmat` run kernels K7 and K8
+(`ops/cuda_ell.py`) on the matrix's compressed rows on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -167,11 +167,10 @@ class CSRMatrix:
 @dataclasses.dataclass(eq=False)
 class ELLMatrix:
     """Padded sparse rows with absolute int32 columns, stored slot-major:
-    cols/vals are (width, nrows), the layout kernel K8 reads (a warp reads
-    32 consecutive rows of one slot). Padding has value 0 and an in-range
+    cols/vals are (width, nrows). Padding has value 0 and an in-range
     column. The JAX package stores the transpose, (nrows, width). Every
     ELL operand of the port (`to_ell`, `BandedELL.to_ell`) is one of
-    these; K7 reads its nonzero slots as `compressed`, made once."""
+    these; K7 and K8 read its nonzero slots as `compressed`, made once."""
 
     shape: tuple[int, int]
     cols: torch.Tensor  # (width, nrows) int32
@@ -187,7 +186,8 @@ class ELLMatrix:
 
     @functools.cached_property
     def compressed(self) -> cuda_ell.CompressedRows:
-        """K7's operand: the nonzero slots in compressed rows."""
+        """K7's and K8's operand: the nonzero slots in compressed rows, in
+        slot order."""
         return cuda_ell.CompressedRows.from_ell(self)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
@@ -195,9 +195,10 @@ class ELLMatrix:
         return self.compressed.matvec(x)
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
-        """SpMM (m, n) @ (n, k) -> (m, k) through kernel K8 (plain version
-        on CPU)."""
-        return cuda_ell.ell_spmm(self.cols, self.vals, X)
+        """SpMM (m, n) @ (n, k) -> (m, k) through kernel K8 on the
+        compressed rows (plain version on CPU); an X of other than n rows
+        raises ValueError."""
+        return cuda_ell.ell_spmm(self.compressed, X)
 
 
 @dataclasses.dataclass(eq=False)

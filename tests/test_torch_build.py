@@ -2,6 +2,7 @@
 library per source, named by that source's own hash, and no build where
 no kernel is launched."""
 
+import re
 import shutil
 
 import pytest
@@ -49,6 +50,22 @@ def test_every_entry_point_has_argtypes():
         for name, argtypes in entries.items():
             assert name in text, name
             assert argtypes[-1] is _build.ctypes.c_void_p   # the stream
+
+
+def test_sparse_argtypes_match_the_c_signatures():
+    """Each entry point of sparse_spmv.cu (written out, not by macro) has
+    argtypes of as many entries as its C definition has parameters (ctypes
+    would pass a missing one as garbage), with a pointer where the C side
+    takes a pointer."""
+    text = _build.source_path("sparse_spmv").read_text()
+    for name, argtypes in _build.SOURCES["sparse_spmv"].items():
+        found = re.findall(rf"\bint {name}\(([^)]*)\)", text)
+        assert len(found) == 1, name
+        params = [p.strip() for p in found[0].split(",")]
+        assert len(params) == len(argtypes), name
+        for param, argtype in zip(params, argtypes):
+            assert (argtype is _build.ctypes.c_void_p) == ("*" in param), \
+                (name, param)
 
 
 def test_missing_nvcc_raises(sources, monkeypatch):

@@ -21,7 +21,8 @@ from mpbp_tpu_torch.models.fused import _extend_rows, make_fused_apply_kernel
 from mpbp_tpu_torch.models.multiphase import operator_from_numpy
 from mpbp_tpu_torch.ops import cuda_dia, cuda_ell, cuda_stencil
 from mpbp_tpu_torch.ops.dia import DIAMatrix
-from mpbp_tpu_torch.ops.sparse import ELLMatrix
+from mpbp_tpu_torch.ops.cuda_ell import BandedELL
+from mpbp_tpu_torch.ops.sparse import CSRMatrix, ELLMatrix
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -133,18 +134,20 @@ def _ell(rng, N, ncols, W, dtype, device):
             torch.as_tensor(vals, dtype=dtype, device=device))
 
 
-def _rows(rng, N, max_row, dtype, device, long_row=0):
-    """Random compressed rows of lengths 0..max_row (a quarter of them
-    empty), row 1 of length `long_row` when given."""
+def _rows(rng, N, max_row, dtype, device, long_row=0, ncols=None):
+    """Random compressed (N, ncols) rows, square by default, of lengths
+    0..max_row (a quarter of them empty), row 1 of length `long_row` when
+    given."""
+    ncols = N if ncols is None else ncols
     lens = rng.integers(0, max_row + 1, size=N)
     lens[rng.random(N) < 0.25] = 0
     if long_row and N > 1:
         lens[1] = long_row
     indptr = np.concatenate([[0], np.cumsum(lens)])
-    cols = rng.integers(0, N, size=indptr[-1])
+    cols = rng.integers(0, ncols, size=indptr[-1])
     vals = rng.normal(size=indptr[-1])
-    return cuda_ell.CompressedRows.from_arrays((N, N), indptr, cols, vals,
-                                               dtype, device=device)
+    return cuda_ell.CompressedRows.from_arrays((N, ncols), indptr, cols,
+                                               vals, dtype, device=device)
 
 
 def _misaligned(A):
@@ -223,17 +226,78 @@ def test_ell_matvec_runs_k7_on_its_compressed_rows(cuda_device):
 
 
 @pytest.mark.parametrize("dtype,bound", BOUNDS)
-@pytest.mark.parametrize("k", [1, 33])
-def test_ell_spmm_matches_plain(cuda_device, dtype, bound, k):
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 16, 33, 130])
+@pytest.mark.parametrize("max_row,long_row", [(7, 70), (40, 300)])
+def test_ell_spmm_matches_plain(cuda_device, dtype, bound, k, max_row,
+                                long_row):
+    """K8 on rectangular compressed rows (a quarter of them empty, one row
+    longer than any lane group) against its plain version, at every
+    launch shape of `spmm_plan`: 16-byte and one-column chunks, entries
+    split over lanes, column tiles."""
     rng = np.random.default_rng(3)
-    N, ncols, W = 1000, 700, 5
-    cols, vals = _ell(rng, N, ncols, W, dtype, cuda_device)
-    X = torch.as_tensor(rng.normal(size=(ncols, k)), dtype=dtype,
+    A = _rows(rng, 1000, max_row, dtype, cuda_device, long_row, ncols=700)
+    X = torch.as_tensor(rng.normal(size=(700, k)), dtype=dtype,
                         device=cuda_device)
     before = cuda_ell.LAUNCHES["ell_spmm"]
-    got = cuda_ell.ell_spmm(cols, vals, X)
+    got = cuda_ell.ell_spmm(A, X)
     assert cuda_ell.LAUNCHES["ell_spmm"] == before + 1
-    _assert_close(got, cuda_ell.ell_spmm_reference(cols, vals, X), bound)
+    assert got.shape == (1000, k)
+    _assert_close(got, cuda_ell.ell_spmm_reference(A, X), bound)
+
+
+@pytest.mark.parametrize("dtype,bound", BOUNDS)
+@pytest.mark.parametrize("k", [4, 16])
+def test_ell_spmm_misaligned_x_takes_one_column_a_lane(cuda_device, dtype,
+                                                       bound, k):
+    """X one element past a 16-byte boundary (a storage offset): the
+    scalar path, against the plain version and the aligned run."""
+    rng = np.random.default_rng(7)
+    A = _rows(rng, 2000, 9, dtype, cuda_device)
+    buf = torch.as_tensor(rng.normal(size=2000 * k + 1), dtype=dtype,
+                          device=cuda_device)
+    X = buf[1:].view(2000, k)
+    assert X.is_contiguous() and X.data_ptr() % 16 != 0
+    assert cuda_ell.spmm_plan(k, dtype, A.nnz / 2000, False)[0] is False
+    got = cuda_ell.ell_spmm(A, X)
+    _assert_close(got, cuda_ell.ell_spmm_reference(A, X), bound)
+    _assert_close(got, cuda_ell.ell_spmm(A, X.clone()), bound)
+
+
+def test_ell_spmm_refuses_what_it_cannot_take(cuda_device):
+    """A non-contiguous X and an X of another row count raise ValueError
+    before any launch; N = 0 and k = 0 return empty results unlaunched."""
+    rng = np.random.default_rng(8)
+    A = _rows(rng, 300, 6, torch.float64, cuda_device, ncols=200)
+    before = cuda_ell.LAUNCHES["ell_spmm"]
+    X = torch.as_tensor(rng.normal(size=(8, 200)), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_ell.ell_spmm(A, X.t())
+    for rows in (199, 201):
+        with pytest.raises(ValueError, match=r"X must be \(200, k\)"):
+            cuda_ell.ell_spmm(A, torch.zeros((rows, 8), dtype=torch.float64,
+                                             device=cuda_device))
+    assert cuda_ell.ell_spmm(A, X.t().contiguous()[:, :0]).shape == (300, 0)
+    empty = _rows(rng, 0, 3, torch.float64, cuda_device, ncols=200)
+    assert cuda_ell.ell_spmm(empty, X.t().contiguous()).shape == (0, 8)
+    assert cuda_ell.LAUNCHES["ell_spmm"] == before
+
+
+def test_ell_and_banded_matmat_run_k8(cuda_device):
+    """ELLMatrix.matmat (slot-major, padded, an empty row) and
+    BandedELL.matmat through K8 on the compressed rows, against the padded
+    arrays' own sum, one launch each."""
+    rng = np.random.default_rng(9)
+    cols, vals = _ell(rng, 1024, 1024, 7, torch.float64, cuda_device)
+    ell = ELLMatrix((1024, 1024), cols, vals)
+    X = torch.as_tensor(rng.normal(size=(1024, 16)), device=cuda_device)
+    want = (vals[:, :, None] * X[cols]).sum(0)
+    before = cuda_ell.LAUNCHES["ell_spmm"]
+    _assert_close(ell.matmat(X), want, 1e-12)
+    csr = CSRMatrix.from_coo(
+        1024, 1024, np.tile(np.arange(1024), 7), cols.cpu().numpy().ravel(),
+        vals.cpu().numpy().ravel(), device=cuda_device)
+    _assert_close(BandedELL.from_csr(csr).matmat(X), want, 1e-12)
+    assert cuda_ell.LAUNCHES["ell_spmm"] == before + 2
 
 
 def test_ilut_neumann_solve_on_card_matches_cpu(cuda_device):

@@ -1,8 +1,8 @@
 """The port's sparse-matrix layer against the JAX package on the same
 numpy-seeded inputs (CPU): the CSR/DIA exports of the stencil operators,
 the CSR/ELL/BSR/COO matvecs, the plain versions of kernels K5-K8 against
-the Pallas kernels in interpret mode, the Neumann epilogue and
-`best_spmv`'s path names."""
+the Pallas kernels in interpret mode, the Neumann epilogue, K8's launch
+plan and X-shape check, and `best_spmv`'s path names."""
 
 import dataclasses
 
@@ -200,14 +200,13 @@ def test_ell_references_match_pallas_interpret(gtg_u_factor, dtype):
                                 strict.vals.astype(dtype))
     jb = pallas_ell.BandedELL.from_csr(jcsr)
     ell = BandedELL.from_csr(port_csr(jcsr)).to_ell()
-    cols, vals = ell.cols, ell.vals
     rows = ell.compressed
-    assert rows.nnz == strict.nnz and rows.vals.dtype == vals.dtype
+    assert rows.nnz == strict.nnz and rows.vals.dtype == ell.vals.dtype
     rng = np.random.default_rng(3)
     x = rng.normal(size=strict.shape[0]).astype(dtype)
     X = rng.normal(size=(strict.shape[0], 5)).astype(dtype)
     got = cuda_ell.ell_spmv_reference(rows, torch.as_tensor(x))
-    got_mm = cuda_ell.ell_spmm_reference(cols, vals, torch.as_tensor(X))
+    got_mm = cuda_ell.ell_spmm_reference(rows, torch.as_tensor(X))
     rtol = 1e-5 if dtype == np.float32 else 1e-12
     close(got, jb.matvec(jnp.asarray(x)), rtol)
     if dtype == np.float32:
@@ -221,6 +220,113 @@ def test_ell_references_match_pallas_interpret(gtg_u_factor, dtype):
     torch.testing.assert_close(cuda_ell.ell_spmv(rows, torch.as_tensor(x)),
                                got)
     torch.testing.assert_close(ell.matmat(torch.as_tensor(X)), got_mm)
+
+
+@pytest.fixture(scope="module")
+def spmm_operands(jop16, gtg_u_factor):
+    """K8's CPU operands as JAX CSRs: GtG's strict ILUT U factor at n=16
+    (256 x 256) with every fifth row emptied as well (its last row is
+    empty already), and the tall G (1024 x 256)."""
+    strict, _ = gtg_u_factor
+    indptr, idx, v = strict.host_arrays()
+    rows = np.repeat(np.arange(strict.shape[0]), np.diff(indptr))
+    keep = rows % 5 != 2
+    ptr = np.zeros(strict.shape[0] + 1, np.int64)
+    ptr[1:] = np.cumsum(np.bincount(rows[keep], minlength=strict.shape[0]))
+    square = jax_sparse.CSRMatrix(strict.shape, ptr,
+                                  jnp.asarray(np.asarray(idx)[keep]),
+                                  jnp.asarray(np.asarray(v)[keep]))
+    return {"square": square, "rectangular": jop16.G.to_csr()}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [1, 4, 16, 33, 130])
+@pytest.mark.parametrize("matrix", ["square", "rectangular"])
+def test_ell_spmm_reference_matches_jax(spmm_operands, matrix, k, dtype):
+    """The plain K8 on compressed rows against the JAX package's ELL
+    matmat, and on the square matrix in f32 against ell_spmm_pallas in
+    interpret mode (the Pallas kernel takes f32 and square matrices only):
+    f32 within 3e-5 (as tests/test_pallas_ell.py), f64 within 1e-12, both
+    relative to max|Y|. The CPU path of ELLMatrix.matmat is that plain
+    version."""
+    src = spmm_operands[matrix]
+    jcsr = jax_sparse.CSRMatrix(src.shape, src.indptr, src.indices,
+                                src.vals.astype(dtype))
+    ell = port_csr(jcsr).to_ell()
+    rows = ell.compressed
+    if matrix == "square":
+        assert np.diff(rows.rowptr.numpy()).min() == 0   # empty rows
+    X = np.random.default_rng(6).normal(size=(src.shape[1], k)).astype(dtype)
+    got = cuda_ell.ell_spmm_reference(rows, torch.as_tensor(X))
+    assert got.shape == (src.shape[0], k) and got.dtype == rows.vals.dtype
+    rtol = 3e-5 if dtype == np.float32 else 1e-12
+    close(got, jcsr.to_ell().matmat(jnp.asarray(X)), rtol)
+    if matrix == "square" and dtype == np.float32:
+        jb = pallas_ell.BandedELL.from_csr(jcsr)
+        close(got, pallas_ell.ell_spmm_pallas(jb, k, interpret=True)(
+            jnp.asarray(X)), rtol)
+    assert torch.equal(ell.matmat(torch.as_tensor(X)), got)
+
+
+@pytest.mark.parametrize("x_rows", [2, 5])
+@pytest.mark.parametrize("entry", ["ell_spmm", "ELLMatrix.matmat",
+                                   "BandedELL.matmat"])
+def test_spmm_refuses_an_x_of_another_row_count(entry, x_rows):
+    """A 3x3 operand with an X of 2 or 5 rows raises ValueError through
+    every entry point, where the JAX package's gather clamps the short X
+    and ignores the long one's extra rows; nothing is launched."""
+    csr = CSRMatrix.from_coo(3, 3, [0, 1, 2, 2], [0, 2, 1, 2],
+                             [1.0, 2.0, 3.0, 4.0], device="cpu")
+    X = torch.ones((x_rows, 2), dtype=torch.float64)
+    call = {"ell_spmm": lambda: cuda_ell.ell_spmm(csr.to_ell().compressed,
+                                                  X),
+            "ELLMatrix.matmat": lambda: csr.to_ell().matmat(X),
+            "BandedELL.matmat": lambda: BandedELL.from_csr(csr).matmat(X)}
+    before = dict(cuda_ell.LAUNCHES)
+    with pytest.raises(ValueError, match=r"X must be \(3, k\)"):
+        call[entry]()
+    assert cuda_ell.LAUNCHES == before
+    assert csr.to_ell().matmat(torch.ones((3, 2), dtype=torch.float64)
+                               ).shape == (3, 2)
+
+
+def test_spmm_checks_x_before_its_device():
+    """The row-count check comes before the device's: on a device with no
+    kernel (meta) a short X raises the shape's ValueError, a right one the
+    device's."""
+    rows = cuda_ell.CompressedRows(
+        (3, 3), torch.zeros(4, dtype=torch.int32, device="meta"),
+        torch.zeros(4, dtype=torch.int32, device="meta"),
+        torch.zeros(4, dtype=torch.float64, device="meta"), 2)
+    with pytest.raises(ValueError, match="X must be"):
+        cuda_ell.ell_spmm(rows, torch.ones((2, 4), dtype=torch.float64,
+                                           device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_ell.ell_spmm(rows, torch.ones((3, 4), dtype=torch.float64,
+                                           device="meta"))
+
+
+F32, F64 = torch.float32, torch.float64
+
+
+@pytest.mark.parametrize("k,dtype,aligned,mean_row,want", [
+    (16, F32, True, 5, (True, 4, 4)),       # GtG's k: 4 lanes a row
+    (16, F64, True, 5, (True, 8, 8)),       # 8 lanes, 4 rows a warp
+    (16, F32, False, 5, (False, 16, 16)),   # misaligned X: one column a lane
+    (4, F32, True, 5, (True, 1, 8)),        # one chunk: entries split
+    (2, F64, True, 5, (True, 1, 8)),
+    (1, F32, True, 5, (False, 1, 8)),
+    (1, F64, True, 100, (False, 1, 32)),
+    (1, F64, True, 0.5, (False, 1, 1)),
+    (2, F32, True, 5, (False, 2, 8)),
+    (3, F64, True, 5, (False, 4, 4)),
+    (33, F32, True, 5, (False, 32, 32)),    # two column tiles
+    (130, F32, True, 5, (False, 32, 32)),   # five
+    (130, F64, True, 5, (True, 32, 32)),    # 65 chunks: three
+    (256, F32, True, 5, (True, 32, 32)),
+])
+def test_spmm_plan(k, dtype, aligned, mean_row, want):
+    assert cuda_ell.spmm_plan(k, dtype, mean_row, aligned) == want
 
 
 def test_ell_epilogue_matches_neumann_sweeps(gtg_u_factor):
@@ -280,8 +386,6 @@ def test_best_spmv_paths_match_jax(jop16, gtg_u_factor):
 
 
 def test_wrappers_check_their_operands():
-    cols = torch.zeros((2, 4), dtype=torch.int32)
-    vals = torch.ones((2, 4), dtype=torch.float64)
     x = torch.ones(4, dtype=torch.float64)
     rows = cuda_ell.CompressedRows.from_arrays((4, 4), [0, 1, 1, 2, 2],
                                                [0, 3], [1.0, 2.0],
@@ -295,9 +399,12 @@ def test_wrappers_check_their_operands():
     with pytest.raises(ValueError):
         cuda_ell.ell_spmv(rows, torch.ones(5, dtype=torch.float64))
     with pytest.raises(TypeError, match="int32"):
-        cuda_ell.ell_spmm(cols.long(), vals, x[:, None])
+        cuda_ell.ell_spmm(dataclasses.replace(rows, cols=rows.cols.long()),
+                          x[:, None])
+    with pytest.raises(TypeError):
+        cuda_ell.ell_spmm(rows, x[:, None].float())
     with pytest.raises(ValueError):
-        cuda_ell.ell_spmm(cols, vals, x)
+        cuda_ell.ell_spmm(rows, x)
     A = DIAMatrix.from_numpy((4, 4), (0, -1), np.ones((2, 4)), device="cpu")
     with pytest.raises(ValueError):
         cuda_dia.dia_spmv(A, torch.ones(5, dtype=torch.float64))
