@@ -70,15 +70,37 @@ yardstick only, the port never calls it.
                at n=64, once more with K1's function computed by K2 (in
                f32 K1's own rounding since K2 shares its design), and the
                true-residual monitor at n=16.
-The line before the last is the kernels' JSON summary; the last line is
+ 15. krylov_slice - lsc_mg_krylov (K1 the matvec of its Jacobi-GMRES on F,
+               K2 the outer matvec) in full f64: at n=32, where its count
+               is held to the JAX package's; at n=128, the largest grid
+               where the JAX package's settings converge in their budget,
+               cold then warm, and once more with K1 and K2 replaced by
+               their plain versions; then hybrid at n=64.
+ 16. spectrum - (i) eigs on the 512^2 f64 A (K2 every Arnoldi step) against
+               the same call through the plain a_matvec(fused=False); (ii)
+               spectrum_report at n=64 with lsc_mg_full
+               (benchmarks/spectrum_prod.py's settings).
+ 17. exact_schur - the n=8 exact_schur solve and the dense spectrum of its
+               A*M^-1 (spectrum_report(exact=True)).
+ 18. stokes - BASELINE configs[0] (64^2, block diagonal, ILUT F inner) and
+               configs[1] (32^2 variable viscosity, block triangular), each
+               with the 24-sweep Neumann apply (every sweep set one K7 call).
+ 19. checkpoint - the 512^2 operator saved and loaded (K2's apply of both
+               bit-equal); the n=128 lsc_mg_full hybrid solve stopped after 5
+               iterations, its Arnoldi state saved, loaded and resumed against
+               the uninterrupted solve.
+Each of phases 15-19 prints one JSON line with its seconds. The line
+before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -87,8 +109,10 @@ import torch
 
 from mpbp_tpu_torch import bench, bench_solve, drivers, native
 from mpbp_tpu_torch.drivers import (a_matvec, lsc_inners, pack_fields,
-                                    solve_multiphase)
+                                    solve_multiphase, spectrum_report)
 from mpbp_tpu_torch.models import mms
+from mpbp_tpu_torch.models.stokes import (STOKES_FIELDS,
+                                          make_stokes_operator, stokes_mms)
 from mpbp_tpu_torch.models.fused import _extend_rows, make_fused_apply_kernel
 from mpbp_tpu_torch.models.multiphase import (make_multiphase_operator,
                                               operator_from_numpy)
@@ -96,10 +120,12 @@ from mpbp_tpu_torch.ops import _build, cuda_dia, cuda_ell, cuda_stencil, ilu
 from mpbp_tpu_torch.ops.cuda_ell import BandedELL
 from mpbp_tpu_torch.ops.dia import DIAMatrix
 from mpbp_tpu_torch.ops.spgemm import lsc_products_device
+from mpbp_tpu_torch.solvers import eigen
 from mpbp_tpu_torch.solvers import gmres as krylov
 from mpbp_tpu_torch.solvers import preconditioners as pcs
 from mpbp_tpu_torch.solvers.preconditioners import make_lsc_pc_mixed
-from mpbp_tpu_torch.utils.norms import norms_report
+from mpbp_tpu_torch.utils import checkpoint
+from mpbp_tpu_torch.utils.norms import norms_report, weighted_l2
 
 SOURCE = {"f_apply": "mpbp_tpu_torch/csrc/fused_stencil.cu",
           "a_apply": "mpbp_tpu_torch/csrc/fused_stencil.cu",
@@ -171,6 +197,32 @@ IR_N64 = dict(n=64, eta_n=100, pc="lsc_mg_full", precision="ir", tol=1e-8,
 IR_N64_L2, IR_N64_JAX_INNER = 1.470731e-3, 124
 MONITOR = dict(n=16, eta_n=100, pc="lsc_mg_full", tol=1e-8, maxiter=100,
                inner_tol=1e-4, inner_iters=40, true_res_monitor=True)
+# krylov_slice: the JAX package's own lsc_mg_krylov settings; on the CPU it
+# takes 17 / 50 / 181 outer iterations at n = 32 / 64 / 128 (not mesh-
+# independent), so n=128 is the largest grid inside maxiter=200. At n=128
+# the count follows the rounding of the inner GMRES solves (the port's
+# count with K1/K2 and with their plain versions differ on one card), so
+# there it is printed and the solve is held to converged, true relres and
+# the JAX package's L2; the count is held to JAX's at n=32, where rounding
+# does not move it
+KRYLOV = dict(eta_n=100, eta_s=1, pc="lsc_mg_krylov", tol=1e-8,
+              maxiter=200, inner_tol=1e-5, inner_iters=60)
+KRYLOV_N, KRYLOV_ITERS, KRYLOV_L2 = 128, 181, 3.69498e-4
+KRYLOV_COUNT_N, KRYLOV_COUNT_ITERS, KRYLOV_COUNT_L2 = 32, 17, 5.8412e-3
+KRYLOV_HYBRID_N, KRYLOV_HYBRID_L2, KRYLOV_HYBRID_JAX_F64 = 64, 1.46979e-3, 50
+# spectrum: (i) the reference's EPS settings on the 512^2 A; (ii)
+# benchmarks/spectrum_prod.py's report, whose n=64 clustering radius the
+# JAX package recorded as 94.194 (artifacts/SPECTRUM_r05.json)
+EIGS_N, EIGS_KW = 512, dict(k=10, tol=1e-4, maxiter=40)
+SPECTRUM = dict(n=64, eta_n=100, eta_s=1, pcs=("lsc_mg_full",), k=12,
+                tol=1e-4, maxiter=60, exact=False)
+SPECTRUM_RADIUS = 94.194
+# stokes: BASELINE configs[0] (JAX on the CPU: 59 iterations with the level
+# apply, L2 5.611e-4) and configs[1], each with the Neumann ILUT apply
+STOKES_ILUT = dict(fill=100, tau=1e-3, apply="neumann", sweeps=24)
+# checkpoint: the hybrid lsc_mg_full solve at n=128, stopped after 5
+CKPT_N, CKPT_STOP = 128, 5
+CKPT_SOLVE = dict(tol=1e-10, maxiter=40)
 
 
 class SmokeFailure(RuntimeError):
@@ -1295,6 +1347,334 @@ def phase_ir_slice(dev) -> dict:
     return runs
 
 
+def emit(phase: str, **kv) -> None:
+    """The one JSON line of a phase."""
+    print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def _timed_solve(dev, **kw):
+    """solve_multiphase on `dev` with every launch count reset just
+    before: (report, seconds, K1/K2/K7 launches)."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rep = solve_multiphase(**kw, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return rep, secs, {"f_apply": cuda_stencil.LAUNCHES["f_apply"],
+                       "a_apply": cuda_stencil.LAUNCHES["a_apply"],
+                       "ell_spmv": cuda_ell.LAUNCHES["ell_spmv"]}
+
+
+def _check_krylov(label: str, n: int, rep, l2_ref: float) -> tuple:
+    """converged, true relres < 1e-7, finite x of the right shape and the
+    JAX package's L2 within 1%: (true relres, L2)."""
+    true_res, l2 = rep.params["true_relres"], rep.error_norms["l2"]
+    check(rep.converged, f"krylov {label} n={n} did not converge: "
+                         f"{rep.status}")
+    check(true_res < 1e-7, f"krylov {label} n={n}: true relres "
+                           f"{true_res:.3e} >= 1e-7")
+    check(abs(l2 - l2_ref) <= 0.01 * l2_ref,
+          f"krylov {label} n={n}: L2 {l2:.6e} not within 1% of {l2_ref}")
+    check(tuple(rep.x.shape) == (5 * n ** 2,)
+          and bool(torch.isfinite(rep.x).all()),
+          f"krylov {label} n={n}: wrong shape or non-finite values")
+    return true_res, l2
+
+
+def phase_krylov_slice(dev) -> dict:
+    """lsc_mg_krylov in full f64: n=32 within 2 iterations of the JAX
+    package's count; n=128 cold, warm and with the plain K1/K2; then
+    hybrid at n=64. Each converged, true relres < 1e-7, the JAX package's
+    L2 within 1%."""
+    t_phase = time.perf_counter()
+    out = {}
+    rep, secs, launches = _timed_solve(dev, n=KRYLOV_COUNT_N, **KRYLOV)
+    true_res, l2 = _check_krylov("count", KRYLOV_COUNT_N, rep,
+                                 KRYLOV_COUNT_L2)
+    say("krylov_slice", run="count", n=KRYLOV_COUNT_N, iters=rep.iters,
+        jax_iters=KRYLOV_COUNT_ITERS, true_relres=f"{true_res:.3e}",
+        l2=f"{l2:.6e}", seconds=f"{secs:.3f}",
+        launches=json.dumps(launches))
+    check(abs(rep.iters - KRYLOV_COUNT_ITERS) <= 2,
+          f"krylov n={KRYLOV_COUNT_N}: {rep.iters} iterations, JAX "
+          f"{KRYLOV_COUNT_ITERS}")
+    out["count"] = dict(n=KRYLOV_COUNT_N, iters=rep.iters, seconds=secs,
+                        launches=launches, l2=l2, true_relres=true_res)
+    for label in ("cold", "warm"):
+        rep, secs, launches = _timed_solve(dev, n=KRYLOV_N, **KRYLOV)
+        true_res, l2 = _check_krylov(label, KRYLOV_N, rep, KRYLOV_L2)
+        say("krylov_slice", run=label, n=KRYLOV_N, iters=rep.iters,
+            jax_iters=KRYLOV_ITERS, true_relres=f"{true_res:.3e}",
+            l2=f"{l2:.6e}", seconds=f"{secs:.3f}",
+            s_per_outer=f"{secs / max(rep.iters, 1):.4f}",
+            launches=json.dumps(launches))
+        for k in ("f_apply", "a_apply"):
+            check(launches[k] > 0, f"kernel {k} was not launched by the "
+                                   "lsc_mg_krylov solve")
+        out[label] = dict(iters=rep.iters, seconds=secs, launches=launches,
+                          l2=l2, true_relres=true_res)
+    # the same solve with K1 and K2 replaced by their plain versions: the
+    # two counts differ by rounding alone
+    kernels = cuda_stencil.f_apply, cuda_stencil.a_apply
+    drivers._SETUP_CACHE.clear()
+    cuda_stencil.f_apply = cuda_stencil.f_apply_reference
+    cuda_stencil.a_apply = cuda_stencil.a_apply_reference
+    try:
+        rep, secs, launches = _timed_solve(dev, n=KRYLOV_N, **KRYLOV)
+    finally:
+        cuda_stencil.f_apply, cuda_stencil.a_apply = kernels
+        drivers._SETUP_CACHE.clear()
+    true_res, l2 = _check_krylov("plain", KRYLOV_N, rep, KRYLOV_L2)
+    say("krylov_slice", run="plain K1/K2", n=KRYLOV_N, iters=rep.iters,
+        jax_iters=KRYLOV_ITERS, true_relres=f"{true_res:.3e}",
+        l2=f"{l2:.6e}", seconds=f"{secs:.3f}")
+    check(launches["f_apply"] == launches["a_apply"] == 0,
+          "the plain lsc_mg_krylov solve launched a kernel")
+    out["plain"] = dict(iters=rep.iters, seconds=secs, l2=l2,
+                        true_relres=true_res)
+    rep, secs, launches = _timed_solve(dev, n=KRYLOV_HYBRID_N, **KRYLOV,
+                                       precision="hybrid")
+    true_res, l2 = rep.params["true_relres"], rep.error_norms["l2"]
+    say("krylov_slice", run="hybrid", n=KRYLOV_HYBRID_N, iters=rep.iters,
+        jax_f64_iters=KRYLOV_HYBRID_JAX_F64, true_relres=f"{true_res:.3e}",
+        l2=f"{l2:.6e}", seconds=f"{secs:.3f}",
+        launches=json.dumps(launches))
+    check(rep.converged and true_res < 1e-7,
+          f"krylov hybrid n={KRYLOV_HYBRID_N}: not converged to 1e-7")
+    check(abs(l2 - KRYLOV_HYBRID_L2) <= 0.01 * KRYLOV_HYBRID_L2,
+          f"krylov hybrid L2 {l2:.6e} not within 1% of {KRYLOV_HYBRID_L2}")
+    out["hybrid"] = dict(iters=rep.iters, seconds=secs, launches=launches,
+                         l2=l2, true_relres=true_res)
+    emit("krylov_slice", seconds=time.perf_counter() - t_phase, **out)
+    return out
+
+
+def phase_spectrum(dev) -> dict:
+    """(i) eigs on the 512^2 f64 A through K2 against the same call with
+    the same seed through the plain a_matvec(fused=False): the dominant
+    |lambda| to 1e-6 and the k magnitudes to 1e-3 relative. (ii)
+    spectrum_report at n=64 with lsc_mg_full: a converged eigenvalue and
+    the clustering radius within 1% of the JAX package's 94.194."""
+    t_phase = time.perf_counter()
+    op = make_multiphase_operator(EIGS_N, eta_n=100, dtype=torch.float64,
+                                  device=dev)
+    ex = torch.ones(5 * EIGS_N ** 2, dtype=torch.float64, device=dev)
+    runs = {}
+    for label, fused in (("K2", True), ("plain", False)):
+        mv = a_matvec(op, fused=fused)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = eigen.eigs(mv, ex, **EIGS_KW)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k2 = cuda_stencil.LAUNCHES["a_apply"]
+        mags = np.sort(np.abs(res.eigenvalues))[::-1]
+        say("spectrum", matvec=label, n=EIGS_N, n_converged=res.n_converged,
+            restarts=res.iterations, top_abs=f"{mags[0]:.10e}",
+            max_resid=f"{float(np.max(res.residuals)):.3e}",
+            seconds=f"{secs:.3f}", K2_launches=k2)
+        check(np.all(np.isfinite(res.eigenvalues)), "eigs: non-finite")
+        check((k2 > 0) == fused, f"eigs {label}: {k2} K2 launches")
+        runs[label] = dict(mags=mags, n_converged=res.n_converged,
+                           restarts=res.iterations, seconds=secs,
+                           max_resid=float(np.max(res.residuals)),
+                           K2_launches=k2)
+    a, b = runs["K2"]["mags"], runs["plain"]["mags"]
+    check(len(a) == len(b) == EIGS_KW["k"], "eigs: fewer than k values")
+    check(abs(a[0] - b[0]) <= 1e-6 * b[0],
+          f"eigs: dominant |lambda| {a[0]:.10e} vs plain {b[0]:.10e}")
+    check(bool(np.all(np.abs(a - b) <= 1e-3 * b)),
+          "eigs: the k magnitudes differ from the plain run's by > 1e-3")
+    del op, ex
+
+    t0 = time.perf_counter()
+    rep = spectrum_report(**SPECTRUM, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    spec = rep["preconditioned"]["lsc_mg_full"]
+    radius = spec["clustering_radius_1"]
+    say("spectrum", entry="spectrum_report", n=SPECTRUM["n"],
+        n_converged=spec["n_converged"], n_nullspace=spec["n_nullspace"],
+        clustering_radius_1=f"{radius:.6f}", jax=SPECTRUM_RADIUS,
+        A_n_converged=rep["A"]["n_converged"], seconds=f"{secs:.2f}")
+    check(spec["n_converged"] >= 1, "spectrum_report: nothing converged")
+    check(abs(radius - SPECTRUM_RADIUS) <= 0.01 * SPECTRUM_RADIUS,
+          f"clustering radius {radius:.4f} not within 1% of "
+          f"{SPECTRUM_RADIUS}")
+    out = {label: {k: v for k, v in r.items() if k != "mags"}
+           for label, r in runs.items()}
+    out["report"] = dict(n=SPECTRUM["n"], n_converged=spec["n_converged"],
+                         n_nullspace=spec["n_nullspace"],
+                         clustering_radius_1=radius, seconds=secs)
+    emit("spectrum", seconds=time.perf_counter() - t_phase, **out)
+    return out
+
+
+def phase_exact_schur(dev) -> dict:
+    """The n=8 exact_schur solve on the card (<= 2 iterations) and the
+    dense spectrum of its A*M^-1: at least 319/320 within 0.05 of 1."""
+    t_phase = time.perf_counter()
+    rep, secs, launches = _timed_solve(dev, n=8, eta_n=1, eta_s=1,
+                                       pc="exact_schur", tol=1e-8,
+                                       maxiter=40)
+    check(rep.converged and rep.iters <= 2,
+          f"exact_schur: {rep.iters} iterations, {rep.status}")
+    check(launches["a_apply"] > 0, "exact_schur solve did not launch K2")
+    t0 = time.perf_counter()
+    srep = spectrum_report(n=8, eta_n=1, eta_s=1, pcs=("exact_schur",),
+                           exact=True, device=dev)
+    spec = srep["preconditioned"]["exact_schur"]
+    ev = np.asarray(spec["eigenvalues_re"]) + 1j * np.asarray(
+        spec["eigenvalues_im"])
+    frac = float(np.mean(np.abs(ev - 1.0) < 0.05))
+    ssecs = time.perf_counter() - t0
+    say("exact_schur", iters=rep.iters, relres=f"{rep.relres:.3e}",
+        l2=f"{rep.error_norms['l2']:.6e}", solve_s=f"{secs:.3f}",
+        frac_within_0p05=f"{frac:.5f}", n_nullspace=spec["n_nullspace"],
+        spectrum_s=f"{ssecs:.2f}")
+    check(len(ev) == 320 and frac >= 319 / 320,
+          f"exact_schur: {frac:.5f} of spec(A M^-1) within 0.05 of 1")
+    out = dict(iters=rep.iters, solve_s=secs, launches=launches,
+               frac_within_0p05=frac, spectrum_s=ssecs)
+    emit("exact_schur", seconds=time.perf_counter() - t_phase, **out)
+    return out
+
+
+def _stokes_solve(dev, n: int, variable: bool) -> dict:
+    """BASELINE configs[0] (constant eta, MMS rhs, block diagonal) or
+    configs[1] (variable eta, random consistent rhs from numpy seed 0,
+    block lower-triangular), F inner ILUT(100, 1e-3) with Neumann sweeps;
+    FGMRES to 1e-8 in at most 200 iterations."""
+    n2 = n * n
+
+    def eta_fn(y, x):
+        return 1.0 + 0.5 * torch.sin(2 * np.pi * x) * torch.sin(2 * np.pi * y)
+
+    t0 = time.perf_counter()
+    op = make_stokes_operator(n, c=1.0, d=-1.0, device=dev,
+                              **({"eta_fn": eta_fn} if variable else {}))
+    f_inner = pcs.ILUInner.ilut_of(op.F, **STOKES_ILUT)
+    if variable:
+        rng = np.random.default_rng(0)
+        b_np = rng.normal(size=3 * n2)
+        b_np[2 * n2:] -= np.mean(b_np[2 * n2:])
+        b_vec = torch.as_tensor(b_np, device=dev)
+        u_vec = None
+        eta_c = op.grid.eval_at_cells(eta_fn).reshape(-1)
+
+        def pc(v):
+            zu = f_inner(v[:2 * n2])
+            du = op.D.apply({"u": zu[:n2].reshape(n, n),
+                             "v": zu[n2:].reshape(n, n)})["p"].reshape(-1)
+            return torch.cat([zu, -eta_c * (v[2 * n2:] + du)])
+    else:
+        u_ex, b = stokes_mms(op.grid, 1.0, -1.0, eta=1.0)
+        b_vec = torch.cat([b[f].reshape(-1) for f in STOKES_FIELDS])
+        u_vec = torch.cat([u_ex[f].reshape(-1) for f in STOKES_FIELDS])
+
+        def pc(v):
+            return torch.cat([f_inner(v[:2 * n2]), -v[2 * n2:]])
+
+    tmpl = {f: torch.zeros(n, n, dtype=torch.float64, device=dev)
+            for f in STOKES_FIELDS}
+    mv = krylov.flatten_op(op.A.apply, tmpl, STOKES_FIELDS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = krylov.fgmres(mv, b_vec, tol=1e-8, maxiter=200, M=pc)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k7 = cuda_ell.LAUNCHES["ell_spmv"]
+    _, rn = krylov.residual_norm(mv, b_vec, res.x)
+    true_res = float(rn / torch.linalg.norm(b_vec))
+    err = (float(weighted_l2(res.x, u_vec, op.grid.dx * op.grid.dy))
+           if u_vec is not None else None)
+    label = "configs[1]" if variable else "configs[0]"
+    say("stokes", config=label, n=n, iters=res.iters,
+        true_relres=f"{true_res:.3e}", weighted_l2=err,
+        setup_s=f"{setup_s:.2f}", seconds=f"{secs:.3f}", K7_launches=k7)
+    check(res.converged and res.iters <= 200 and true_res < 1e-7,
+          f"stokes {label}: {res.iters} iterations, converged "
+          f"{res.converged}, true relres {true_res:.3e}")
+    check(err is None or err < 5e-2, f"stokes {label}: L2 {err} >= 5e-2")
+    check(k7 > 0, f"stokes {label}: K7 was not launched")
+    return dict(n=n, iters=res.iters, true_relres=true_res, l2=err,
+                setup_s=setup_s, seconds=secs, K7_launches=k7)
+
+
+def phase_stokes(dev) -> dict:
+    t_phase = time.perf_counter()
+    out = {"configs[0]": _stokes_solve(dev, 64, False),
+           "configs[1]": _stokes_solve(dev, 32, True)}
+    emit("stokes", seconds=time.perf_counter() - t_phase, **out)
+    return out
+
+
+def phase_checkpoint(dev) -> dict:
+    """The 512^2 operator through save_operator / load_operator: K2's apply
+    of the loaded operator torch.equal to the original's. Then the n=128
+    lsc_mg_full hybrid solve through fgmres_resumable, stopped after
+    CKPT_STOP iterations, its Arnoldi state saved, loaded and resumed: the
+    uninterrupted solve's count and its x within 1e-10 relative."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        op = make_multiphase_operator(512, eta_n=100, dtype=torch.float64,
+                                      device=dev)
+        path = os.path.join(tmp, "op.npz")
+        checkpoint.save_operator(path, op)
+        op2 = checkpoint.load_operator(path, device=dev)
+        x = torch.as_tensor(np.random.default_rng(0).normal(
+            size=5 * 512 * 512), device=dev)
+        same = torch.equal(a_matvec(op)(x), a_matvec(op2)(x))
+        op_mb = os.path.getsize(path) / 1e6
+        del op, op2, x
+        check(same, "the loaded 512^2 operator's K2 apply differs")
+
+        p = dict(c=1.0, d=-1.0, xi=1.0, eta_n=100.0, eta_s=1.0)
+        op64 = make_multiphase_operator(CKPT_N, **p, device=dev)
+        op32 = make_multiphase_operator(CKPT_N, **p, dtype=torch.float32,
+                                        device=dev)
+        _, b = mms.fill_sol_and_rhs(op64.grid, mms.variable_thn_problem(
+            1.0, -1.0, 1.0, 100.0, 1.0))
+        b_vec = pack_fields(op64, b)
+        mv = a_matvec(op64)
+        M = drivers.make_preconditioner_mixed(op64, op32, "lsc_mg_full",
+                                              inner_tol=1e-4, inner_iters=40)
+        whole, _ = krylov.fgmres_resumable(mv, b_vec, M=M, **CKPT_SOLVE)
+        part, state = krylov.fgmres_resumable(mv, b_vec, M=M,
+                                              max_steps=CKPT_STOP,
+                                              **CKPT_SOLVE)
+        path = os.path.join(tmp, "arnoldi.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_arnoldi_state(path, state, torch.zeros_like(b_vec),
+                                      meta={"n": CKPT_N})
+        state_mb = os.path.getsize(path) / 1e6
+        state2, x0, _ = checkpoint.load_arnoldi_state(path, device=dev)
+        io_s = time.perf_counter() - t0
+        del state
+        res, _ = krylov.fgmres_resumable(mv, b_vec, x0=x0, M=M,
+                                         state=state2, **CKPT_SOLVE)
+        torch.cuda.synchronize()
+    rel = float((res.x - whole.x).abs().max() / whole.x.abs().max())
+    say("checkpoint", operator_n=512, operator_mb=f"{op_mb:.2f}",
+        apply_equal=same, n=CKPT_N, whole_iters=whole.iters,
+        stopped_at=part.iters, resumed_iters=res.iters,
+        x_rel_diff=f"{rel:.3e}", state_mb=f"{state_mb:.2f}",
+        save_load_s=f"{io_s:.2f}")
+    check(whole.converged and res.converged, "checkpoint solve not converged")
+    check(part.iters == CKPT_STOP and res.iters == whole.iters,
+          f"resumed solve took {res.iters}, uninterrupted {whole.iters}")
+    check(rel <= 1e-10, f"resumed x differs by {rel:.3e} relative")
+    out = dict(apply_equal=same, operator_mb=op_mb, whole_iters=whole.iters,
+               resumed_iters=res.iters, x_rel_diff=rel, state_mb=state_mb,
+               save_load_s=io_s)
+    emit("checkpoint", seconds=time.perf_counter() - t_phase, **out)
+    return out
+
+
 def kernel_row(kname: str, label: str, r: dict, launches: int) -> dict:
     """One entry of the kernels' JSON line."""
     return dict(name=f"{kname} ({label})", route="cuda",
@@ -1324,6 +1704,11 @@ def main() -> None:
     halo = phase_halo_kernels(dev)
     phase_bench(dev)
     ir = phase_ir_slice(dev)
+    phase_krylov_slice(dev)
+    phase_spectrum(dev)
+    phase_exact_schur(dev)
+    phase_stokes(dev)
+    phase_checkpoint(dev)
     nl, nd = ILU_SLICE["n"], DIA_LSC_N
     f_u = f"F n={nl} ILUT(400, 3e-5) U"
     kernels = [kernel_row(kname, label, r, launches)

@@ -1,6 +1,7 @@
 """High-level solve workflows returning structured reports (port of
-`mpbp_tpu/drivers.py`: the multigrid, Krylov and ILU kinds, precision
-full/hybrid/ir, the per-iteration true-residual monitor).
+`mpbp_tpu/drivers.py`: every preconditioner kind, precision
+full/hybrid/ir, the per-iteration true-residual monitor and the spectrum
+report; the sharded solve is not ported yet).
 
 Everything is assembled in f64 (or the requested dtype) directly on the
 requested device. The outer matvec is kernel K2 and the F matvecs of the
@@ -14,7 +15,7 @@ version.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -24,25 +25,12 @@ from mpbp_tpu_torch.models.fields import constant_thn
 from mpbp_tpu_torch.models.fused import make_f_apply, make_fused_apply
 from mpbp_tpu_torch.models.multiphase import (ALL_FIELDS, MultiphaseOperator,
                                               make_multiphase_operator)
+from mpbp_tpu_torch.solvers import eigen
 from mpbp_tpu_torch.solvers import gmres as krylov
 from mpbp_tpu_torch.solvers import preconditioners as pcs
 from mpbp_tpu_torch.solvers.mixed import block_scales, fgmres_ir
 from mpbp_tpu_torch.solvers.multigrid import MGPressureSolver, MGVelocitySolver
 from mpbp_tpu_torch.utils.norms import norms_report
-
-# kinds and modes of the JAX package that this port does not have yet, with
-# the ROADMAP.md item that brings each
-_NOT_PORTED = {
-    "exact_schur": "queue 1 item 7 (exact-Schur and block preconditioners)",
-    "lsc_mg_krylov": "queue 1 item 8 (remaining driver kinds)",
-}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what!r} is not ported to mpbp_tpu_torch yet: ROADMAP.md "
-        f"{_NOT_PORTED[what]}")
-
 
 @dataclasses.dataclass
 class SolveReport:
@@ -84,10 +72,19 @@ def unpack_fields(op: MultiphaseOperator, v: torch.Tensor) -> dict:
             for i, f in enumerate(ALL_FIELDS)}
 
 
-def a_matvec(op: MultiphaseOperator) -> Callable:
-    """Flat matrix-free matvec for the coupled operator A, through kernel
-    K2: coefficients are recomputed from the theta planes instead of
-    streaming the assembled planes."""
+def a_matvec(op: MultiphaseOperator, fused: bool = True) -> Callable:
+    """Flat matrix-free matvec for the coupled operator A.
+
+    `fused=True` goes through kernel K2: coefficients are recomputed from
+    the theta planes instead of streaming the assembled planes.
+    `fused=False` is the plain `StencilOperator.apply` of the assembled
+    planes (no kernel), e.g. for operators modified after assembly."""
+    if not fused:
+        def mv(v):
+            return pack_fields(op, op.A.apply(unpack_fields(op, v)))
+
+        return mv
+
     fmv = make_fused_apply(op)
     nf = len(ALL_FIELDS)
     n = op.grid.n
@@ -109,6 +106,7 @@ def make_preconditioner(op: MultiphaseOperator, kind: str,
 
     kinds:
       none        - unpreconditioned
+      exact_schur - dense exact Schur complement (small grids only)
       lsc_ilut    - LSC with ILUT(fill, tau) inner solves: the reference-
                     parity configuration
       lsc_ilu0    - LSC with ILU(0) inner solves
@@ -116,10 +114,14 @@ def make_preconditioner(op: MultiphaseOperator, kind: str,
       lsc_mg_full - LSC with multigrid inner solves: MG-preconditioned GMRES
                     on F, three pressure-MG cycles on GtG
       lsc_krylov  - LSC with matrix-free inner Krylov (CG on GtG, GMRES on F)
+      lsc_mg_krylov - LSC with three pressure-MG cycles and the Jacobi-
+                    preconditioned GMRES on F of lsc_krylov
       block_diag  - block-diagonal F/Schur PC (ILUT inners)
       block_tri   - block lower-triangular PC (ILUT inners)"""
     if kind == "none":
         return None
+    if kind == "exact_schur":
+        return pcs.make_exact_schur_pc(op)
     f_inner, p_inner = lsc_inners(op, kind, ilut_fill=ilut_fill,
                                   ilut_tau=ilut_tau, ilut_refine=ilut_refine,
                                   inner_tol=inner_tol,
@@ -145,9 +147,6 @@ def lsc_inners(op: MultiphaseOperator, kind: str,
     ilut_apply: 'level' (exact level-scheduled triangular solves) or
     'neumann' (`ilut_sweeps` Jacobi sweeps per triangle, each one launch of
     kernel K7, at the cost of extra outer iterations)."""
-    if kind in _NOT_PORTED:
-        raise _not_ported(kind)
-
     if kind in ("lsc_ilut", "lsc_ilu0", "block_diag", "block_tri"):
         GtG, _ = pcs.lsc_products(op)
         tri = dict(dtype=dtype, apply=ilut_apply, sweeps=ilut_sweeps)
@@ -164,13 +163,7 @@ def lsc_inners(op: MultiphaseOperator, kind: str,
         return f_inner, p_inner
 
     if kind == "lsc_krylov":
-        # Jacobi(diag F)-preconditioned GMRES on F; the diagonal PC is what
-        # makes it work at viscosity contrast 100
-        fdiag = torch.cat([op.F.terms[(f, f)][(0, 0)].reshape(-1)
-                           for f in op.F.out_fields])
-        f_inner = pcs.KrylovInner(make_f_apply(op), tol=inner_tol,
-                                  maxiter=inner_iters, method="gmres",
-                                  M=lambda v: v / fdiag)
+        f_inner = _f_krylov_inner(op, inner_tol, inner_iters)
         GtG, _ = pcs.lsc_products(op)
         g_mv = krylov.flatten_op(
             GtG.apply, {"p": torch.zeros(op.grid.shape, dtype=dtype,
@@ -189,15 +182,32 @@ def lsc_inners(op: MultiphaseOperator, kind: str,
                                   method="gmres", M=mg_vel)
         return f_inner, p_inner
 
-    if kind == "lsc_mg":
-        # pressure multigrid with an ILUT F inner (level-scheduled, as in
-        # the JAX package, whatever ilut_apply says)
+    if kind in ("lsc_mg", "lsc_mg_krylov"):
+        # pressure multigrid; lsc_mg with an ILUT F inner (level-scheduled,
+        # as in the JAX package, whatever ilut_apply says), lsc_mg_krylov
+        # with lsc_krylov's matrix-free F inner
         p_inner = MGPressureSolver.of(op, cycles=3)
-        f_inner = pcs.ILUInner.ilut_of(op.F, fill=ilut_fill, tau=ilut_tau,
-                                       dtype=dtype, refine=ilut_refine)
+        if kind == "lsc_mg":
+            f_inner = pcs.ILUInner.ilut_of(op.F, fill=ilut_fill,
+                                           tau=ilut_tau, dtype=dtype,
+                                           refine=ilut_refine)
+        else:
+            f_inner = _f_krylov_inner(op, inner_tol, inner_iters)
         return f_inner, p_inner
 
     raise ValueError(f"unknown preconditioner kind: {kind}")
+
+
+def _f_krylov_inner(op: MultiphaseOperator, inner_tol: float,
+                    inner_iters: int) -> pcs.KrylovInner:
+    """Matrix-free F inner solve: GMRES on F through kernel K1,
+    preconditioned by Jacobi on diag F, which is what makes it work at
+    viscosity contrast 100."""
+    fdiag = torch.cat([op.F.terms[(f, f)][(0, 0)].reshape(-1)
+                       for f in op.F.out_fields])
+    return pcs.KrylovInner(make_f_apply(op), tol=inner_tol,
+                           maxiter=inner_iters, method="gmres",
+                           M=lambda v: v / fdiag)
 
 
 def make_preconditioner_mixed(op64: MultiphaseOperator,
@@ -390,6 +400,79 @@ def solve_multiphase(n: int = 16, c: float = 1.0, d: float = -1.0,
                        if true_hist is not None else {})),
         status=classify_status(result.converged, hist),
     )
+
+
+def spectrum_report(n: int = 16, c: float = 1.0, d: float = -1.0,
+                    xi: float = 1.0, eta_n: float = 1.0, eta_s: float = 1.0,
+                    pcs: Sequence[str] = ("exact_schur", "lsc_ilut"),
+                    k: int = 10, tol: float = 1e-4, maxiter: int = 40,
+                    exact: bool | None = None, *,
+                    device: torch.device | str, **pc_kwargs) -> dict:
+    """Plot-ready eigenvalue study of A against A*M^-1 for each named
+    preconditioner, as a JSON-serializable dict: each spectrum as (re, im)
+    lists with its residuals, converged and nullspace counts and the
+    clustering radius around 1.
+
+    `exact=True` takes the full dense spectrum (small n only: the matvec
+    is applied to the identity's columns one at a time and the eigenvalues
+    come from `np.linalg.eigvals` on the host); `exact=False` runs the
+    matrix-free Arnoldi `eigen.eigs`; the default is exact when n <= 12.
+    The matvecs run eagerly on `device`."""
+    op = make_multiphase_operator(n, c=c, d=d, xi=xi, eta_n=eta_n,
+                                  eta_s=eta_s, dtype=torch.float64,
+                                  device=device)
+    mv = a_matvec(op)
+    N = 5 * n * n
+    ex = torch.ones(N, dtype=torch.float64, device=op.grid.device)
+    use_exact = (n <= 12) if exact is None else exact
+
+    def _spectrum(matvec) -> dict:
+        if use_exact:
+            cols = torch.stack([matvec(e) for e in torch.eye(
+                N, dtype=torch.float64, device=op.grid.device)], dim=1)
+            ev = np.linalg.eigvals(cols.cpu().numpy())
+            ev = ev[np.argsort(-np.abs(ev))]
+            resid = np.zeros(len(ev))
+            nconv = len(ev)
+        else:
+            res = eigen.eigs(matvec, ex, k=k, tol=tol, maxiter=maxiter)
+            ev, resid, nconv = res.eigenvalues, res.residuals, res.n_converged
+        evc = ev[:nconv]
+        # the periodic problem's constant-pressure nullspace is an exact 0
+        # eigenvalue of A*M^-1: counted apart so that it does not mask the
+        # clustering
+        nontrivial = evc[np.abs(evc) > 1e-8]
+        out = {
+            "eigenvalues_re": np.real(ev).tolist(),
+            "eigenvalues_im": np.imag(ev).tolist(),
+            "residuals": np.asarray(resid).tolist(),
+            "n_converged": int(nconv),
+            "n_nullspace": int(np.sum(np.abs(evc) <= 1e-8)),
+            # for LSC preconditioners this is the outlier envelope: the
+            # bulk of spec(A*M^-1) sits at 1 with a few large outliers
+            "clustering_radius_1": (
+                float(np.max(np.abs(nontrivial - 1.0)))
+                if len(nontrivial) else float("inf")),
+        }
+        if use_exact and len(nontrivial):
+            dev = np.abs(nontrivial - 1.0)
+            out["frac_within_0p1_of_1"] = float(np.mean(dev < 0.1))
+            out["frac_within_0p5_of_1"] = float(np.mean(dev < 0.5))
+        return out
+
+    report = {
+        "n": n,
+        "params": dict(c=c, d=d, xi=xi, eta_n=eta_n, eta_s=eta_s),
+        "method": "dense" if use_exact else "arnoldi",
+        "A": _spectrum(mv),
+        "preconditioned": {},
+    }
+    for kind in pcs:
+        M = make_preconditioner(op, kind, **pc_kwargs)
+        if M is None:
+            continue
+        report["preconditioned"][kind] = _spectrum(lambda v: mv(M(v)))
+    return report
 
 
 def apply_report(n: int = 32, c: float = 1.0, d: float = -1.0,

@@ -1,11 +1,13 @@
 """Block preconditioners for the multiphase Stokes saddle-point system
-(port of `mpbp_tpu/solvers/preconditioners.py`, without the dense
-exact-Schur preconditioner and the Jacobi and dense inners).
+(port of `mpbp_tpu/solvers/preconditioners.py`).
 
-`make_lsc_pc` is the approximate-commutator / least-squares-commutator
-Schur preconditioner: S^-1 ~ (GtG)^-1 (Gt F G) (GtG)^-1 with GtG = (-D) G,
-applied with approximate inner solves of F and GtG (Krylov, multigrid or
-ILU: `ILUInner`). `make_lsc_pc_mixed` keeps the LSC formula in f64 around
+`make_exact_schur_pc` is the dense exact-Schur block back-substitution
+(small grids only). `make_lsc_pc` is the approximate-commutator /
+least-squares-commutator Schur preconditioner:
+S^-1 ~ (GtG)^-1 (Gt F G) (GtG)^-1 with GtG = (-D) G, applied with
+approximate inner solves of F and GtG (Krylov, multigrid, ILU:
+`ILUInner`, fixed Jacobi sweeps: `JacobiInner`, or a dense inverse:
+`DenseInner`). `make_lsc_pc_mixed` keeps the LSC formula in f64 around
 f32 inner solves. `make_lsc_pc_from_dia` builds LSC from DIA matrices
 alone. `make_block_diagonal_pc` / `make_block_triangular_pc` are the
 classical block preconditioners.
@@ -19,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from mpbp_tpu_torch.models.fused import make_f_apply
@@ -126,6 +129,37 @@ class KrylovInner:
         return res.x
 
 
+@dataclasses.dataclass(eq=False)
+class JacobiInner:
+    """Fixed Jacobi sweeps x <- x + D^-1 (v - A x) (`gmres.jacobi`)."""
+
+    matvec: Callable
+    diag: torch.Tensor
+    iters: int = 200
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return krylov.jacobi(self.matvec, self.diag, v, iters=self.iters)
+
+
+@dataclasses.dataclass(eq=False)
+class DenseInner:
+    """Precomputed dense (pseudo-)inverse, small grids and tests only: the
+    inverse is taken on the host in f64 and applied as one matmul on the
+    operator's device."""
+
+    inv: torch.Tensor
+
+    @classmethod
+    def of(cls, A_stencil: StencilOperator, pseudo: bool = False
+           ) -> "DenseInner":
+        d = A_stencil.to_dense()
+        inv = np.linalg.pinv(d) if pseudo else np.linalg.inv(d)
+        return cls(torch.as_tensor(inv, device=A_stencil.device))
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(self.inv, v)
+
+
 def _lsc_apply(op: MultiphaseOperator, GtFG, f_inner: Callable,
                p_inner: Callable) -> Callable:
     n = op.grid.n
@@ -230,6 +264,45 @@ def make_lsc_pc_from_dia(minus_D: DIAMatrix, F: DIAMatrix, G: DIAMatrix,
         x_a = p_inner(rp)
         x_p = p_inner(GtFG.matvec(x_a))
         u = u_hat - f_inner(G.matvec(x_p))
+        return torch.cat([u, x_p])
+
+    return apply
+
+
+def make_exact_schur_pc(op: MultiphaseOperator, inner_tol: float = 1e-5,
+                        inner_maxiter: int = 200,
+                        project_nullspace: bool = True) -> Callable:
+    """Dense exact-Schur block back-substitution, small grids only:
+    u_hat = F^+ v_u; x_p = -GMRES(S, D u_hat + v_p); u = u_hat - F^+ G x_p,
+    with S = -D F^+ G formed densely on the host in f64 and the products
+    applied as matmuls on the operator's device.
+
+    `project_nullspace` removes the constant-pressure component from the
+    inner Schur rhs and solution: S is singular on the periodic domain
+    (constants), and without the projection the inner GMRES residual
+    recurrence drifts from the true residual on an inconsistent rhs."""
+    F = op.F.to_dense()
+    G = op.G.to_dense()
+    D = op.D.to_dense()
+    Finv = np.linalg.pinv(F)
+    S = (-D) @ Finv @ G
+    dev = op.grid.device
+    Fi, Sj, Gj, Dj = (torch.as_tensor(a, device=dev) for a in (Finv, S, G, D))
+
+    def s_matvec(x):
+        return torch.matmul(Sj, x)
+
+    def apply(v):
+        vu, vp = split_uv_p(op, v)
+        u_hat = torch.matmul(Fi, vu)
+        rhs = torch.matmul(Dj, u_hat) + vp
+        if project_nullspace:
+            rhs = rhs - torch.mean(rhs)
+        x_p = -krylov.gmres(s_matvec, rhs, tol=inner_tol,
+                            maxiter=inner_maxiter).x
+        if project_nullspace:
+            x_p = x_p - torch.mean(x_p)
+        u = u_hat - torch.matmul(Fi, torch.matmul(Gj, x_p))
         return torch.cat([u, x_p])
 
     return apply

@@ -1,10 +1,12 @@
-"""Config dataclasses and their CLI binding (port of
+"""Config dataclasses, their CLI binding and their JSON form (port of
 `mpbp_tpu/utils/config.py`)."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+from typing import Any
 
 
 @dataclasses.dataclass
@@ -38,6 +40,14 @@ class SolverConfig:
     device: str = "cuda"
 
 
+@dataclasses.dataclass
+class MeshConfig:
+    """Device-mesh layout for the sharded paths."""
+
+    n_devices: int = 0             # 0 = all available
+    axis: str = "x"
+
+
 def add_dataclass_args(parser: argparse.ArgumentParser, dc):
     for f in dataclasses.fields(dc):
         parser.add_argument(f"--{f.name.replace('_', '-')}",
@@ -47,3 +57,20 @@ def add_dataclass_args(parser: argparse.ArgumentParser, dc):
 def dataclass_from_args(cls, args: argparse.Namespace):
     return cls(**{f.name: getattr(args, f.name)
                   for f in dataclasses.fields(cls)})
+
+
+def to_json(*configs) -> str:
+    """The configs as one JSON object keyed by class name."""
+    out: dict[str, Any] = {}
+    for c in configs:
+        out[type(c).__name__] = dataclasses.asdict(c)
+    return json.dumps(out, indent=2)
+
+
+def from_json(s: str) -> tuple:
+    """The configs of a `to_json` string, in its order; unknown keys are
+    skipped."""
+    data = json.loads(s)
+    mapping = {"ProblemConfig": ProblemConfig, "SolverConfig": SolverConfig,
+               "MeshConfig": MeshConfig}
+    return tuple(mapping[k](**v) for k, v in data.items() if k in mapping)

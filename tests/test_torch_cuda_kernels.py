@@ -466,3 +466,26 @@ def test_ir_solve_on_card_matches_cpu(cuda_device, halo):
     cpu = bench_solve.main(argv + ["--device", "cpu"])
     assert gpu["converged"] and gpu["true_relres"] < 1e-8
     assert gpu["error_l2"] == pytest.approx(cpu["error_l2"], rel=1e-4)
+
+
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(n=8, eta_n=1.0, eta_s=1.0, pc="exact_schur", tol=1e-8,
+                      maxiter=40), id="exact_schur"),
+    pytest.param(dict(n=16, eta_n=100.0, eta_s=1.0, pc="lsc_mg_krylov",
+                      tol=1e-8, maxiter=60, inner_tol=1e-5, inner_iters=60),
+                 id="lsc_mg_krylov")])
+def test_slice8_kinds_on_card_match_cpu(cuda_device, kw):
+    """The exact_schur (dense matmuls, K2 outer matvec) and lsc_mg_krylov
+    (K1 inner matvec, K2 outer) solves on the card against the same solves
+    on the CPU: the same iteration count and the CPU's solution within
+    1e-8 relative."""
+    before = dict(cuda_stencil.LAUNCHES)
+    gpu = solve_multiphase(**kw, device=cuda_device)
+    assert cuda_stencil.LAUNCHES["a_apply"] > before["a_apply"]
+    if kw["pc"] == "lsc_mg_krylov":
+        assert cuda_stencil.LAUNCHES["f_apply"] > before["f_apply"]
+    cpu = solve_multiphase(**kw, device="cpu")
+    assert gpu.converged and cpu.converged
+    assert gpu.iters == cpu.iters
+    scale = float(cpu.x.abs().max())
+    assert float((gpu.x.cpu() - cpu.x).abs().max()) <= 1e-8 * scale

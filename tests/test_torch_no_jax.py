@@ -1,6 +1,8 @@
 """The port runs without JAX: importing its entry points (the drivers, the
-CLI, the two benchmarks, every ops module, the mixed-precision solver, the
-metrics and `chip_smoke.py`) in a fresh interpreter where
+CLI, the two benchmarks, every ops module, the
+mixed-precision solver and the eigensolver, the Stokes model, the
+checkpoint, plot, CSV and metrics utilities and `chip_smoke.py`) in a
+fresh interpreter where
 `import jax` fails loads no JAX module, and no module of the JAX package
 `mpbp_tpu` either, not even one that does not import JAX: the port keeps
 its own copy of the host setup library (`mpbp_tpu_torch/native`)."""
@@ -26,8 +28,9 @@ from mpbp_tpu_torch import native
 from mpbp_tpu_torch.ops import (cuda_dia, cuda_ell, cuda_stencil, dia,
                                 dispatch, ilu, sparse, spgemm, stencil,
                                 trisolve)
-from mpbp_tpu_torch.solvers import mixed
-from mpbp_tpu_torch.utils import metrics
+from mpbp_tpu_torch.models import stokes
+from mpbp_tpu_torch.solvers import eigen, mixed
+from mpbp_tpu_torch.utils import checkpoint, csv_export, metrics, plots
 print(json.dumps({
     "jax": sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib")

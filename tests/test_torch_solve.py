@@ -1,9 +1,11 @@
 """The port's end-to-end MMS solves and CLI against the JAX package at n=16:
 the lsc_mg_full slice in full f64 and hybrid precision, the lsc_krylov
-kind, and the ILU and block kinds (lsc_ilut with level and Neumann
-triangular solves, lsc_ilu0, lsc_mg, block_diag, block_tri)."""
+and lsc_mg_krylov kinds, and the ILU and block kinds (lsc_ilut with level
+and Neumann triangular solves, lsc_ilu0, lsc_mg, block_diag, block_tri);
+the CLI's solve, apply, eigs and export, and the config's JSON."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -11,10 +13,15 @@ import torch
 
 from mpbp_tpu.drivers import solve_multiphase as jax_solve
 from mpbp_tpu_torch import cli
-from mpbp_tpu_torch.drivers import (lsc_inners, make_preconditioner,
+from mpbp_tpu.models.multiphase import \
+    make_multiphase_operator as jax_operator
+from mpbp_tpu.utils.csv_export import write_blocks_to_csv
+from mpbp_tpu_torch.drivers import (make_preconditioner,
                                     make_preconditioner_mixed,
                                     solve_multiphase)
 from mpbp_tpu_torch.models.multiphase import make_multiphase_operator
+from mpbp_tpu_torch.utils import checkpoint as ckpt
+from mpbp_tpu_torch.utils import config as cfg
 
 torch.set_num_threads(1)
 
@@ -117,29 +124,37 @@ def test_cli_default_solve_runs_lsc_ilut(capsys):
     assert "converged=True" in out and "L2=2.2719" in out
 
 
-@pytest.mark.parametrize("kind,entry", [
-    pytest.param(kind, entry, id=kind if entry == "make_preconditioner"
-                 else f"{kind}-{entry}")
-    for kind in ("exact_schur", "lsc_mg_krylov")
-    for entry in ("make_preconditioner", "lsc_inners", "solve_multiphase")])
-def test_unported_kinds_name_their_roadmap_item(kind, entry):
-    op = make_multiphase_operator(8, device="cpu")
-    call = {"make_preconditioner": lambda: make_preconditioner(op, kind),
-            "lsc_inners": lambda: lsc_inners(op, kind),
-            "solve_multiphase": lambda: solve_multiphase(n=8, pc=kind,
-                                                         device="cpu")}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        call[entry]()
+MGK = dict(eta_n=100.0, eta_s=1.0, pc="lsc_mg_krylov", tol=1e-8,
+           maxiter=60, inner_tol=1e-5, inner_iters=60)
+
+
+@pytest.mark.parametrize("n", [16, 32])
+def test_lsc_mg_krylov_matches_jax(n):
+    """Stiff, full f64: converged within 2 iterations of the JAX package's
+    count (17 at both n) and at most 25, L2 within 1% of JAX's."""
+    got = solve_multiphase(n=n, **MGK, device="cpu")
+    want = jax_solve(n=n, **MGK)
+    assert got.converged and got.iters <= 25
+    assert abs(got.iters - want.iters) <= 2, (got.iters, want.iters)
+    assert got.error_norms["l2"] == pytest.approx(want.error_norms["l2"],
+                                                  rel=1e-2)
+    assert got.params["true_relres"] <= 10 * MGK["tol"]
+
+
+def test_lsc_mg_krylov_hybrid_converges():
+    """Hybrid precision through make_preconditioner_mixed at n=16: converged
+    with the true relres at most tol, L2 within 1% of the f64 solve's."""
+    got = solve_multiphase(n=16, **MGK, precision="hybrid", device="cpu")
+    want = jax_solve(n=16, **MGK)
+    assert got.converged and got.params["true_relres"] <= MGK["tol"]
+    assert got.error_norms["l2"] == pytest.approx(want.error_norms["l2"],
+                                                  rel=1e-2)
 
 
 def test_unported_modes_raise_and_bad_names_are_rejected():
-    for argv, item in ((["eigs", "--n", "8"], "item 11"),
-                       (["export", "--n", "8"], "item 11"),
-                       (["solve", "--sharded", "--n", "8", "--device", "cpu"],
-                        "item 13")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue 1 {item}"):
-            cli.main(argv)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 item 13"):
+        cli.main(["solve", "--sharded", "--n", "8", "--device", "cpu"])
     with pytest.raises(ValueError, match="restart"):
         solve_multiphase(n=8, pc="lsc_mg_full", true_res_monitor=True,
                          restart=5, device="cpu")
@@ -271,3 +286,69 @@ def test_unhashable_pc_kwargs_skip_the_setup_memo():
     assert got.converged and got.iters == want.iters
     assert got.error_norms["l2"] == want.error_norms["l2"]
     drivers._SETUP_CACHE.clear()
+
+
+def test_config_json_roundtrip():
+    """to_json/from_json round trip of the three configs, MeshConfig
+    included; the ProblemConfig and MeshConfig JSON read in the JAX
+    package's from_json."""
+    from mpbp_tpu.utils import config as jax_cfg
+
+    p = cfg.ProblemConfig(n=32, eta_n=7.0)
+    s = cfg.SolverConfig(pc="block_tri", tol=1e-6, device="cpu")
+    m = cfg.MeshConfig(n_devices=4)
+    assert cfg.from_json(cfg.to_json(p, s, m)) == (p, s, m)
+    jp, jm = jax_cfg.from_json(cfg.to_json(p, m))
+    assert (jp.n, jp.eta_n, jm.n_devices, jm.axis) == (32, 7.0, 4, "x")
+
+
+def test_cli_eigs_prints_converged_values(capsys):
+    assert cli.main(["eigs", "--n", "8", "--pc", "exact_schur", "--k", "4",
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    a_part, pc_part = out.split("eigenvalues of A*M^-1 (pc=exact_schur):")
+    assert len(a_part.splitlines()) >= 2       # header + a converged value
+    assert len(pc_part.splitlines()) >= 2
+    assert "clustering radius around 1:" in out
+
+
+def test_cli_eigs_report_and_plot(capsys, tmp_path):
+    """--report writes the spectrum JSON, --plot its figure (matplotlib)."""
+    rpath, ppath = tmp_path / "spec.json", tmp_path / "spec.png"
+    assert cli.main(["eigs", "--n", "6", "--eta-n", "1", "--pcs",
+                     "exact_schur", "--exact", "--device", "cpu", "--report",
+                     str(rpath), "--plot", str(ppath)]) == 0
+    rep = json.loads(rpath.read_text())
+    es = rep["preconditioned"]["exact_schur"]
+    assert rep["method"] == "dense" and es["n_nullspace"] == 1
+    assert ppath.stat().st_size > 0
+    assert "pc=exact_schur: clustering radius" in capsys.readouterr().out
+
+
+def test_cli_export_matches_jax_csv(tmp_path):
+    """export --n 8 writes L, D, XI, G_matrix.csv, equal under np.loadtxt
+    to the JAX package's write_blocks_to_csv files."""
+    mine, theirs = tmp_path / "port", tmp_path / "jax"
+    mine.mkdir()
+    theirs.mkdir()
+    assert cli.main(["export", "--n", "8", "--outdir", str(mine),
+                     "--device", "cpu"]) == 0
+    write_blocks_to_csv(jax_operator(8, eta_n=100.0), str(theirs))
+    for name in ("L", "D", "XI", "G"):
+        f = f"{name}_matrix.csv"
+        got = np.loadtxt(os.path.join(mine, f), delimiter=",")
+        want = np.loadtxt(os.path.join(theirs, f), delimiter=",")
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def test_cli_solve_checkpoint(tmp_path, capsys):
+    """solve --checkpoint writes a Krylov state the loader reads back."""
+    path = tmp_path / "sol.npz"
+    assert cli.main(["solve", "--n", "8", "--eta-n", "1", "--pc",
+                     "exact_schur", "--device", "cpu", "--checkpoint",
+                     str(path)]) == 0
+    x, hist, iters, meta = ckpt.load_krylov_state(str(path), device="cpu")
+    assert x.shape == (5 * 64,) and bool(torch.isfinite(x).all())
+    assert iters == len(hist) - 1 and meta["device"] == "cpu"
+    assert "converged=True" in capsys.readouterr().out
