@@ -89,7 +89,23 @@ yardstick only, the port never calls it.
                bit-equal); the n=128 lsc_mg_full hybrid solve stopped after 5
                iterations, its Arnoldi state saved, loaded and resumed against
                the uninterrupted solve.
-Each of phases 15-19 prints one JSON line with its seconds. The line
+ 20. sharded - the row-sharded path on a 1-rank NCCL group opened by
+               `parallel.distributed.init_distributed` (closed at the end):
+               K3 on 4 row bands of a random 2048^2 state, each extended by
+               a rank's halo rows, concatenated and held bit-equal to K2,
+               f32 and f64, and the 1-rank `make_fused_apply_pallas_sharded`
+               likewise; then `solve_multiphase_sharded` at the JAX
+               package's SHARDED_r05.json rows, 1024^2 f64 mg and 2048^2
+               hybrid with restart 24 (both tol 1e-10), each held to
+               converged, true relres <= 1e-10 and finite values of the
+               right shape, its count printed beside JAX's (not held:
+               counts follow rounding), with seconds, K3 launches, peak
+               device memory and a profiler window of two outer
+               iterations. Then each solve goes on from its x to tol 1e-12
+               and that L2, the discretization error, is held within 1% of
+               JAX's (tol 1e-10 leaves an algebraic error of ~1% of it at
+               2048^2, whose sign and size follow the Krylov path).
+Each of phases 15-20 prints one JSON line with its seconds. The line
 before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -106,6 +122,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mpbp_tpu_torch import bench, bench_solve, drivers, native
 from mpbp_tpu_torch.drivers import (a_matvec, lsc_inners, pack_fields,
@@ -120,6 +137,11 @@ from mpbp_tpu_torch.ops import _build, cuda_dia, cuda_ell, cuda_stencil, ilu
 from mpbp_tpu_torch.ops.cuda_ell import BandedELL
 from mpbp_tpu_torch.ops.dia import DIAMatrix
 from mpbp_tpu_torch.ops.spgemm import lsc_products_device
+from mpbp_tpu_torch.parallel import sharding
+from mpbp_tpu_torch.parallel.distributed import init_distributed
+from mpbp_tpu_torch.parallel.halo import Ring
+from mpbp_tpu_torch.parallel.pallas_sharded import (
+    make_fused_apply_pallas_sharded)
 from mpbp_tpu_torch.solvers import eigen
 from mpbp_tpu_torch.solvers import gmres as krylov
 from mpbp_tpu_torch.solvers import preconditioners as pcs
@@ -223,6 +245,18 @@ STOKES_ILUT = dict(fill=100, tau=1e-3, apply="neumann", sweeps=24)
 # checkpoint: the hybrid lsc_mg_full solve at n=128, stopped after 5
 CKPT_N, CKPT_STOP = 128, 5
 CKPT_SOLVE = dict(tol=1e-10, maxiter=40)
+# sharded: K3 on SHARDED_BANDS row bands of a random SHARDED_BAND_N grid;
+# then the JAX package's SHARDED_r05.json rows (benchmarks/big_sharded.py,
+# 8 virtual CPU devices): (label, solve_multiphase_sharded arguments, JAX
+# iterations, JAX L2), each solve then continued to SHARDED_TIGHT_TOL for
+# its discretization error
+SHARDED_BAND_N, SHARDED_BANDS, SHARDED_TIGHT_TOL = 2048, 4, 1e-12
+SHARDED_SOLVES = (
+    ("1024^2 f64", dict(n=1024, eta_n=100.0, pc="mg", precision="f64",
+                        tol=1e-10, maxiter=80), 45, 5.764696e-6),
+    ("2048^2 hybrid", dict(n=2048, eta_n=100.0, pc="mg", precision="hybrid",
+                           tol=1e-10, maxiter=80, restart=24), 52,
+     1.435828e-6))
 
 
 class SmokeFailure(RuntimeError):
@@ -1150,7 +1184,7 @@ def phase_halo_kernels(dev) -> dict:
         cell, xpt, ypt = (rng.uniform(0.1, 0.9, (n, n)) for _ in range(3))
         state = rng.normal(size=(5, n, n))
         a_csr = None
-        if n == LIBRARY_N[0]:
+        if n in LIBRARY_N:
             a_csr = csr_of_stencil(operator_from_numpy(
                 cell, xpt, ypt, params, device=dev, dtype=torch.float64).A)
         for dtype in (torch.float32, torch.float64):
@@ -1675,6 +1709,142 @@ def phase_checkpoint(dev) -> dict:
     return out
 
 
+def _bands_versus_k2(dev) -> dict:
+    """K3 on SHARDED_BANDS row bands of a random SHARDED_BAND_N^2 grid, each
+    band extended by the rows a rank's halo exchange delivers (`Ring.
+    band_ext` of a ring of that many bands), concatenated, against K2 on
+    the whole grid; and the 1-rank `make_fused_apply_pallas_sharded` (the
+    exchange, a local copy, and one K3 launch) against K2."""
+    rng = np.random.default_rng(0)
+    n = SHARDED_BAND_N
+    params = dict(c=1.0, d=-1.0, xi=1.0, eta_n=100.0, eta_s=1.0)
+    cell, xpt, ypt = (rng.uniform(0.1, 0.9, (n, n)) for _ in range(3))
+    state = rng.normal(size=(5, n, n))
+    mesh = sharding.make_mesh()
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        op = operator_from_numpy(cell, xpt, ypt, params, device=dev,
+                                 dtype=dtype)
+        tn, wx, wy = (op.phase_n.cell, op.phase_n.xface_pt,
+                      op.phase_n.yface_pt)
+        x = torch.as_tensor(state, dtype=dtype, device=dev)
+        p, dx, dy = op.params, op.grid.dx, op.grid.dy
+        k2 = cuda_stencil.a_apply(tn, wx, wy, x, p, dx, dy)
+        before = cuda_stencil.LAUNCHES["a_apply_band"]
+        bands = []
+        for i in range(SHARDED_BANDS):
+            ring = Ring(None, SHARDED_BANDS, i, 0, 0)
+            bands.append(cuda_stencil.a_apply_band(
+                ring.band_ext(tn, 1), ring.band(wx), ring.band(wy),
+                ring.band_ext(x, 1), p, dx, dy, 1))
+        got = torch.cat(bands, dim=1)
+        one = make_fused_apply_pallas_sharded(op, mesh)(x)
+        torch.cuda.synchronize()
+        launched = cuda_stencil.LAUNCHES["a_apply_band"] - before
+        bands_equal, one_equal = (bool(torch.equal(got, k2)),
+                                  bool(torch.equal(one, k2)))
+        say("sharded", case=f"K3 on {SHARDED_BANDS} bands vs K2",
+            n=n, dtype=_tag(dtype), bit_equal=bands_equal,
+            one_rank_apply_bit_equal=one_equal,
+            max_abs_diff=f"{float((got - k2).abs().max()):.3e}",
+            k3_launches=launched)
+        check(launched == SHARDED_BANDS + 1, "K3 was not launched once a "
+                                             "band")
+        check(bands_equal and one_equal, f"K3 on bands differs from K2 "
+                                         f"({_tag(dtype)})")
+        out[_tag(dtype)] = dict(bands_equal=bands_equal,
+                                one_rank_equal=one_equal)
+        del op, x, k2, got, one, bands
+    return out
+
+
+def phase_sharded(dev) -> dict:
+    """The row-sharded path on one NCCL rank (module docstring, 20). The
+    K3 launches of each solve are counted from 0 just before it."""
+    t_phase = time.perf_counter()
+    info = init_distributed(device=dev)
+    check(info["backend"] == "nccl" and dist.get_backend() == "nccl"
+          and info["num_processes"] == 1, f"not a 1-rank NCCL group: {info}")
+    say("sharded", group=json.dumps(info))
+    out = {}
+    try:
+        out["bands"] = _bands_versus_k2(dev)
+        for label, kw, jax_iters, jax_l2 in SHARDED_SOLVES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            rep = drivers.solve_multiphase_sharded(**kw, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = dict(cuda_stencil.LAUNCHES)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            n, l2 = kw["n"], rep.error_norms["l2"]
+            true_res = rep.params["true_relres"]
+            say("sharded", solve=repr(label), iters=rep.iters,
+                jax_iters=jax_iters, relres=f"{rep.relres:.3e}",
+                true_relres=f"{true_res:.3e}", l2=f"{l2:.6e}",
+                jax_l2=jax_l2, seconds=f"{secs:.2f}",
+                k3_launches=launches["a_apply_band"],
+                launches=json.dumps(launches), peak_gb=f"{peak_gb:.2f}")
+            check(rep.converged, f"sharded {label} did not converge: "
+                                 f"{rep.status}")
+            check(true_res <= kw["tol"], f"sharded {label}: true relres "
+                                         f"{true_res:.3e} > {kw['tol']}")
+            check(tuple(rep.x.shape) == (5, n, n)
+                  and bool(torch.isfinite(rep.x).all()),
+                  f"sharded {label}: wrong shape or non-finite values")
+            check(launches["a_apply_band"] > 0
+                  and launches["a_apply"] == launches["f_apply"] == 0,
+                  f"sharded {label}: K3 not the path's stencil kernel "
+                  f"({launches})")
+            out[label] = dict(n=n, iters=rep.iters, jax_iters=jax_iters,
+                              relres=rep.relres, true_relres=true_res, l2=l2,
+                              seconds=secs, launches=launches,
+                              peak_gb=peak_gb)
+            x = rep.x
+            del rep
+            # two outer iterations of the same solve on a built setup
+            setup = drivers._sharded_setup(
+                n, 1.0, -1.0, 1.0, kw["eta_n"], 1.0, kw["pc"],
+                kw["precision"], 1e-4, 40, None, "variable", dev)
+            say("sharded", window=f"{label}, 2 outer iterations")
+            window_launches = profile_window(
+                "sharded", lambda: sharding.sharded_solve(
+                    setup.op, setup.b, setup.mesh, tol=kw["tol"], maxiter=2,
+                    pc=setup.M, restart=kw.get("restart")),
+                {"K3": "BandRows"}, top=6)
+            out[label]["window_launches"] = window_launches
+            # the same solve continued from x: its discretization error
+            t0 = time.perf_counter()
+            more = sharding.sharded_solve(
+                setup.op, setup.b, setup.mesh, tol=SHARDED_TIGHT_TOL,
+                maxiter=kw["maxiter"], pc=setup.M, restart=kw.get("restart"),
+                x0=x)
+            l2_tight = norms_report(
+                more.x.reshape(-1),
+                sharding.stack_state(setup.u_exact).reshape(-1),
+                setup.op.grid.dx, setup.op.grid.dy)["l2"]
+            say("sharded", solve=repr(label), continued_to=SHARDED_TIGHT_TOL,
+                more_iters=more.iters, relres=f"{more.relres:.3e}",
+                l2=f"{l2_tight:.6e}", jax_l2=jax_l2,
+                l2_vs_jax=f"{l2_tight / jax_l2 - 1:+.4%}",
+                algebraic_share_at_tol=f"{l2 / l2_tight - 1:+.4%}",
+                seconds=f"{time.perf_counter() - t0:.2f}")
+            check(more.converged, f"sharded {label} did not reach "
+                                  f"{SHARDED_TIGHT_TOL}")
+            check(abs(l2_tight - jax_l2) <= 0.01 * jax_l2,
+                  f"sharded {label}: L2 {l2_tight:.6e} at "
+                  f"{SHARDED_TIGHT_TOL} not within 1% of {jax_l2}")
+            out[label].update(more_iters=more.iters, l2_tight=l2_tight)
+            del setup, more, x
+    finally:
+        dist.destroy_process_group()
+    emit("sharded", seconds=time.perf_counter() - t_phase, **out)
+    return out
+
+
 def kernel_row(kname: str, label: str, r: dict, launches: int) -> dict:
     """One entry of the kernels' JSON line."""
     return dict(name=f"{kname} ({label})", route="cuda",
@@ -1709,6 +1879,7 @@ def main() -> None:
     phase_exact_schur(dev)
     phase_stokes(dev)
     phase_checkpoint(dev)
+    shard = phase_sharded(dev)
     nl, nd = ILU_SLICE["n"], DIA_LSC_N
     f_u = f"F n={nl} ILUT(400, 3e-5) U"
     kernels = [kernel_row(kname, label, r, launches)
@@ -1717,12 +1888,15 @@ def main() -> None:
          runs["warm"]["launches"]["f_apply"]),
         ("a_apply", "K2, f64, n=512", kres[("a_apply", 512, "f64")],
          runs["warm"]["launches"]["a_apply"]),
-        # K3 and K4 at the shapes the ir f32 solve gives them, with the
-        # launches of that solve's --halo extend / pipelined run
+        # K3 at the shape of the 2048^2 sharded solve's outer matvec on
+        # one rank (the whole band with h=1 halo rows, f64), with that
+        # solve's launches (outer matvec and the f32/f64 F applies); K4 at
+        # the shape the ir f32 solve gives it, with the launches of its
+        # --halo pipelined run
         ("a_apply_band",
-         "K3, f32, n=512 extended by h=1: the ir --halo extend matvec",
-         halo[("extend", 512, torch.float32)],
-         ir[("warm", "extend")]["launches"]["a_apply_band"]),
+         "K3, f64, n=2048 band with h=1 halo rows: the 2048^2 sharded "
+         "solve's outer matvec", halo[("extend", 2048, torch.float64)],
+         shard["2048^2 hybrid"]["launches"]["a_apply_band"]),
         ("a_apply_staged",
          f"K4, f32, n=512, tile {cuda_stencil.STAGED_TILE}: "
          "the ir --halo "

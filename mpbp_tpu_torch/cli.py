@@ -11,8 +11,11 @@ Commands:
             writes a spectrum_report JSON, --plot renders it: needs
             matplotlib)
   export  - CSV dump of one phase's block matrices
-  solve --sharded - not ported yet: raises NotImplementedError naming its
-            ROADMAP.md item
+  solve --sharded - the row-sharded solve (drivers.solve_multiphase_sharded)
+            over every rank of the process group, one device a rank:
+            under `python -m torch.distributed.run --nproc-per-node P`
+            (the env:// contract) or the MPBP_* variables, else one rank;
+            rank 0 prints the report
 """
 
 from __future__ import annotations
@@ -51,8 +54,14 @@ def main(argv=None) -> int:
                               "utils/checkpoint.save_krylov_state) to this "
                               "path")
     p_solve.add_argument("--sharded", action="store_true",
-                         help="row-shard the solve over several devices "
-                              "(not ported yet: raises)")
+                         help="row-shard the solve over every rank of the "
+                              "process group, one device a rank "
+                              "(drivers.solve_multiphase_sharded)")
+    p_solve.add_argument("--sharded-pc", default="mg",
+                         choices=["mg", "cg", "block_ilu0"],
+                         help="sharded LSC inner-solve family (block_ilu0 = "
+                              "block-Jacobi ILU(0) triangular solves)")
+    cfg.add_dataclass_args(p_solve, cfg.MeshConfig)
 
     p_apply = sub.add_parser("apply", help="operator-apply MMS check")
     cfg.add_dataclass_args(p_apply, cfg.ProblemConfig)
@@ -104,11 +113,14 @@ def main(argv=None) -> int:
         from mpbp_tpu_torch.drivers import solve_multiphase
         from mpbp_tpu_torch.utils.metrics import Timer, collect_solve_metrics
 
-        if args.sharded:
-            raise NotImplementedError(
-                "'--sharded' is not ported to mpbp_tpu_torch yet: "
-                "ROADMAP.md queue 1 item 13 (parallel/)")
         sol = cfg.dataclass_from_args(cfg.SolverConfig, args)
+        if args.sharded:
+            if sol.precision == "ir":
+                parser.error("--sharded supports precision full (f64) or "
+                             "hybrid; 'ir' has no sharded configuration "
+                             "(use --precision hybrid: the same "
+                             "f32-dominant inner work, f64-certified outer)")
+            return _solve_sharded(args, prob, sol)
         if sol.dtype not in _DTYPES:
             parser.error(f"--dtype must be one of {sorted(_DTYPES)}")
         with Timer() as t_all:
@@ -155,6 +167,44 @@ def main(argv=None) -> int:
     print(f"apply: n={prob.n} "
           f"L1={rep['l1']:.6e} L2={rep['l2']:.6e} max={rep['max']:.6e}")
     return 0
+
+
+def _solve_sharded(args: argparse.Namespace, prob: cfg.ProblemConfig,
+                   sol: cfg.SolverConfig) -> int:
+    """`solve --sharded`: every rank solves its band; rank 0 prints. The
+    process group is closed on the way out."""
+    import torch.distributed as dist
+
+    from mpbp_tpu_torch.drivers import solve_multiphase_sharded
+    from mpbp_tpu_torch.utils.metrics import Timer
+
+    mesh = cfg.dataclass_from_args(cfg.MeshConfig, args)
+    try:
+        with Timer() as t_all:
+            rep = solve_multiphase_sharded(
+                n=prob.n, c=prob.c, d=prob.d, xi=prob.xi, eta_n=prob.eta_n,
+                eta_s=prob.eta_s, problem=prob.problem, pc=args.sharded_pc,
+                tol=sol.tol, maxiter=sol.maxiter,
+                precision="hybrid" if sol.precision == "hybrid" else "f64",
+                restart=args.restart, inner_tol=sol.inner_tol,
+                inner_iters=sol.inner_iters,
+                n_devices=mesh.n_devices or None, device=sol.device,
+                axis=mesh.axis)
+        if dist.get_rank() == 0:
+            print(f"solve (sharded over {rep.params['devices']} devices): "
+                  f"n={rep.n} pc={rep.pc} iters={rep.iters} "
+                  f"relres={rep.relres:.3e} "
+                  f"true_relres={rep.params['true_relres']:.3e} "
+                  f"converged={rep.converged} "
+                  f"seconds={t_all.elapsed:.3f}")
+            print(f"error norms vs MMS exact: "
+                  f"L1={rep.error_norms['l1']:.6e} "
+                  f"L2={rep.error_norms['l2']:.6e} "
+                  f"max={rep.error_norms['max']:.6e}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0 if rep.converged else 2
 
 
 def _eigs(args: argparse.Namespace, prob: cfg.ProblemConfig) -> int:

@@ -1,7 +1,7 @@
 """High-level solve workflows returning structured reports (port of
 `mpbp_tpu/drivers.py`: every preconditioner kind, precision
-full/hybrid/ir, the per-iteration true-residual monitor and the spectrum
-report; the sharded solve is not ported yet).
+full/hybrid/ir, the per-iteration true-residual monitor, the spectrum
+report and the row-sharded solve over `torch.distributed`).
 
 Everything is assembled in f64 (or the requested dtype) directly on the
 requested device. The outer matvec is kernel K2 and the F matvecs of the
@@ -399,6 +399,152 @@ def solve_multiphase(n: int = 16, c: float = 1.0, d: float = -1.0,
                     **({"true_res_history": true_hist}
                        if true_hist is not None else {})),
         status=classify_status(result.converged, hist),
+    )
+
+
+@dataclasses.dataclass(eq=False)
+class _ShardedSetup:
+    """What a sharded solve needs besides its Krylov loop (see
+    `_sharded_setup`)."""
+
+    op: MultiphaseOperator
+    M: Callable
+    mesh: object
+    b: dict                      # the MMS rhs fields, whole on every rank
+    u_exact: dict
+
+
+def _sharded_setup(n, c, d, xi, eta_n, eta_s, pc, precision, inner_tol,
+                   inner_iters, n_devices, problem, device,
+                   axis: str = "x") -> _ShardedSetup:
+    """Open (or join) the process group for `device`, build the mesh, the
+    operators (whole on every rank) and the sharded PC."""
+    from mpbp_tpu_torch.parallel import sharding as sh
+    from mpbp_tpu_torch.parallel.distributed import init_distributed
+
+    if pc not in ("mg", "cg", "block_ilu0"):
+        raise ValueError(f"unknown sharded pc {pc!r} (mg | cg | block_ilu0)")
+    if precision not in ("f64", "hybrid"):
+        raise ValueError(f"unknown sharded precision {precision!r} "
+                         "(f64 | hybrid)")
+    if precision == "hybrid" and pc == "block_ilu0":
+        raise ValueError(
+            "precision='hybrid' builds the MG mixed PC; it has no "
+            "block_ilu0 variant: use precision='f64' with pc='block_ilu0' "
+            "or precision='hybrid' with pc='mg'")
+    dev = torch.device(device)
+    init_distributed(local_device_ids=None if dev.index is None
+                     else [dev.index], device=dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = sh.make_mesh(n_devices, axis)
+
+    thn_fn_kwargs = {}
+    if problem == "constant":
+        thn_fn_kwargs["thn_fn"] = constant_thn(0.75)
+        prob = mms.constant_thn_problem(c, d, xi, eta_n, eta_s)
+    else:
+        prob = mms.variable_thn_problem(c, d, xi, eta_n, eta_s)
+    kw = dict(c=c, d=d, xi=xi, eta_n=eta_n, eta_s=eta_s, device=dev,
+              **thn_fn_kwargs)
+    op = make_multiphase_operator(n, dtype=torch.float64, **kw)
+    u_exact, b = mms.fill_sol_and_rhs(op.grid, prob)
+    pc_kw = dict(inner_tol=inner_tol, inner_iters=inner_iters)
+    if precision == "hybrid":
+        op32 = make_multiphase_operator(n, dtype=torch.float32, **kw)
+        M = sh.make_sharded_lsc_pc_mixed(op, op32, mesh=mesh, axis=axis,
+                                         **pc_kw)
+    elif pc == "block_ilu0":
+        M = sh.make_sharded_lsc_pc_ilu(op, mesh, axis, **pc_kw)
+    else:
+        M = sh.make_sharded_lsc_pc(op, p_solver=pc, mesh=mesh, axis=axis,
+                                   **pc_kw)
+    return _ShardedSetup(op, M, mesh, b, u_exact)
+
+
+def solve_multiphase_sharded(n: int = 256, c: float = 1.0, d: float = -1.0,
+                             xi: float = 1.0, eta_n: float = 1.0,
+                             eta_s: float = 1.0, pc: str = "mg",
+                             tol: float = 1e-8, maxiter: int = 100,
+                             precision: str = "f64",
+                             restart: int | None = None, aug_k: int = 0,
+                             inner_tol: float = 1e-4, inner_iters: int = 40,
+                             n_devices: int | None = None,
+                             problem: str = "variable", *,
+                             device: torch.device | str,
+                             axis: str = "x") -> SolveReport:
+    """End-to-end MMS solve on the row-sharded mesh: the library entry
+    point behind `python -m mpbp_tpu_torch solve --sharded`.
+
+    Every rank of the process group calls it alike (SPMD): it joins or
+    opens the group for `device` (`parallel.distributed.init_distributed`:
+    NCCL on "cuda", where each rank runs on its own device, gloo on
+    "cpu"), solves on its band of rows, and returns the same report on
+    every rank, with x gathered whole.
+
+    pc: 'mg' | 'cg' (`make_sharded_lsc_pc`'s pressure inner solve) or
+        'block_ilu0' (block-Jacobi ILU(0) inners, `make_sharded_lsc_pc_ilu`);
+    precision: 'f64' or 'hybrid' (f64 outer FGMRES and LSC glue around f32
+        inner MG solves, `make_sharded_lsc_pc_mixed`; its pc is 'mg');
+    n_devices: None or the number of ranks, which is the mesh's size (one
+        device a rank; the JAX package takes the first n devices of one
+        process);
+    restart, aug_k: restarted outer cycles (bounding the basis memory) and
+        LGMRES augmentation.
+    params['true_relres'] is ||b - A x|| / ||b|| recomputed at the end.
+    Convergence is certified by it: where FGMRES's estimate met tol but
+    the recomputed residual did not, the solve goes on from x (within
+    maxiter), so `converged` means true relres <= tol. (The JAX package
+    reports its estimate alone.)"""
+    from mpbp_tpu_torch.parallel import sharding as sh
+    from mpbp_tpu_torch.parallel.halo import Ring
+    from mpbp_tpu_torch.parallel.pallas_sharded import (
+        make_fused_apply_pallas_sharded)
+
+    setup = _sharded_setup(n, c, d, xi, eta_n, eta_s, pc, precision,
+                           inner_tol, inner_iters, n_devices, problem,
+                           device, axis)
+    op, mesh = setup.op, setup.mesh
+    ring = Ring.of(mesh, axis)
+    b = ring.band(sh.stack_state(setup.b))
+    mv = make_fused_apply_pallas_sharded(op, mesh, axis)
+    bnorm = float(krylov._vnorm(b, ring.group))
+
+    def true_relres(x):
+        _, rn = krylov.residual_norm(mv, b, ring.band(x), ring.group)
+        return float(rn) / bnorm
+
+    res = sh.sharded_solve(op, setup.b, mesh, tol=tol, maxiter=maxiter,
+                           pc=setup.M, axis=axis, restart=restart,
+                           aug_k=aug_k)
+    iters, hists = res.iters, [res.res_history[:res.iters + 1]]
+    true_res = true_relres(res.x)
+    # FGMRES stops on its residual estimate; the recomputed residual can
+    # land a little above it (rounding in A Z y against V H y). Go on from
+    # x until the recomputed residual meets tol as well
+    while res.converged and true_res > tol and iters < maxiter:
+        res = sh.sharded_solve(op, setup.b, mesh, tol=tol,
+                               maxiter=maxiter - iters, pc=setup.M,
+                               axis=axis, x0=res.x, restart=restart,
+                               aug_k=aug_k)
+        iters += res.iters
+        hists.append(res.res_history[1:res.iters + 1])
+        true_res = true_relres(res.x)
+    converged = res.converged and true_res <= tol
+    err = norms_report(res.x.reshape(-1),
+                       sh.stack_state(setup.u_exact).reshape(-1),
+                       op.grid.dx, op.grid.dy)
+    hist = np.concatenate(hists)
+    return SolveReport(
+        n=n, pc=f"sharded_{pc}_{precision}", iters=iters,
+        relres=res.relres, converged=converged, res_history=hist,
+        error_norms=err, x=res.x,
+        params=dict(c=c, d=d, xi=xi, eta_n=eta_n, eta_s=eta_s, tol=tol,
+                    maxiter=maxiter, problem=problem, true_relres=true_res,
+                    precision=precision, device=str(op.grid.device),
+                    devices=ring.size,
+                    **({"restart": restart} if restart else {})),
+        status=classify_status(converged, hist),
     )
 
 

@@ -13,7 +13,7 @@ roll; the CUDA kernels in `csrc/fused_stencil.cu` compute the same
 expressions term for term at one grid point per thread. The `make_*`
 functions here route through the kernel wrappers; `make_fused_apply_kernel`
 picks one of the three A-apply kernels (K2, K3 on the row-extended state,
-K4).
+K4), and `make_f_apply_stacked` on a mesh is K3 on a rank's row band.
 """
 
 from __future__ import annotations
@@ -222,6 +222,23 @@ def make_f_apply(op: MultiphaseOperator) -> Callable:
     return _flat_f(make_f_apply_planes(
         op.phase_n.cell, op.phase_n.xface_pt, op.phase_n.yface_pt,
         op.params, op.grid.dx, op.grid.dy), op.grid.n)
+
+
+def make_f_apply_stacked(op: MultiphaseOperator, mesh=None,
+                         axis: str = "x") -> Callable:
+    """Flux-form F matvec on stacked (4, n, n) velocity tensors, the form
+    the sharded path keeps its vectors in. Without a mesh it is kernel K1
+    on the whole grid; on a mesh it takes this rank's band (4, n_loc, n)
+    and is kernel K3 on the halo-extended band with a zero pressure plane
+    (`parallel/pallas_sharded.make_band_apply`)."""
+    planes = (op.phase_n.cell, op.phase_n.xface_pt, op.phase_n.yface_pt,
+              op.params, op.grid.dx, op.grid.dy)
+    if mesh is None:
+        return make_f_apply_planes(*planes)
+    from mpbp_tpu_torch.parallel.halo import Ring
+    from mpbp_tpu_torch.parallel.pallas_sharded import make_band_apply
+
+    return make_band_apply(*planes, Ring.of(mesh, axis), fields=4)
 
 
 def _flat_f(stacked_apply: Callable, n: int) -> Callable:

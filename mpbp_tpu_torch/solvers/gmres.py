@@ -14,6 +14,15 @@ Vectors may have any shape (flat or stacked grid fields); the basis adds a
 leading axis. The loops run eagerly; the convergence test costs one host
 sync per iteration. One iteration is `_arnoldi_step` on an `ArnoldiState`,
 so `fgmres_resumable` can stop after any iteration and resume.
+
+Under a row-sharded mesh (`parallel/sharding.py`) each rank holds its band
+of every vector and passes the axis's process group as `group`: every
+inner product and norm is then one all-reduce over it, and every branch
+reads an all-reduced value, which NCCL and gloo give every rank bit for
+bit, so the ranks branch alike. CGS2 batches the first projection with
+the norm before it, and CGS1 its projections with the norm, into one
+all-reduce a pass. Without `group` nothing is reduced and the arithmetic
+is the single-device one.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class KrylovResult(NamedTuple):
@@ -53,12 +63,19 @@ def _identity(v):
     return v
 
 
-def _vdot(a, b):
-    return torch.sum(a * b)
+def _allsum(t: torch.Tensor, group) -> torch.Tensor:
+    """t summed over the ranks of `group` (in place), or t itself."""
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
 
 
-def _vnorm(a):
-    return torch.sqrt(_vdot(a, a))
+def _vdot(a, b, group=None):
+    return _allsum(torch.sum(a * b), group)
+
+
+def _vnorm(a, group=None):
+    return torch.sqrt(_vdot(a, a, group))
 
 
 def _np_dtype(dtype: torch.dtype):
@@ -90,19 +107,19 @@ class ArnoldiState:
     lost: bool = False    # done on a column that was dropped: not converged
 
 
-def _safe_bnorm(b: torch.Tensor):
-    b_norm = float(_vnorm(b))
+def _safe_bnorm(b: torch.Tensor, group=None):
+    b_norm = float(_vnorm(b, group))
     return _np_dtype(b.dtype)(1.0 if b_norm == 0 else b_norm)
 
 
 def _arnoldi_init(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
                   tol: float, m: int, use_z: bool,
-                  safe_bnorm) -> ArnoldiState:
+                  safe_bnorm, group=None) -> ArnoldiState:
     """Fresh Arnoldi state of an m-iteration cycle from the residual at x0."""
     N = b.numel()
     npdt = _np_dtype(b.dtype)
     r0 = b - matvec(x0)
-    beta = npdt(float(_vnorm(r0)))
+    beta = npdt(float(_vnorm(r0, group)))
     V = torch.zeros((m + 1, N), dtype=b.dtype, device=b.device)
     Z = torch.zeros((m if use_z else 0, N), dtype=b.dtype, device=b.device)
     V[0] = (r0 / float(beta) if beta > 0 else r0).reshape(-1)
@@ -117,7 +134,7 @@ def _arnoldi_init(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
 
 def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
                   shape, tol: float, use_z: bool, orthog: str, safe_bnorm,
-                  aug: torch.Tensor | None = None) -> None:
+                  aug: torch.Tensor | None = None, group=None) -> None:
     """One FGMRES iteration on `state`, in place.
 
     `aug`: optional (k, *S) augmentation directions consumed as the LAST k
@@ -142,12 +159,14 @@ def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
 
     Vj = V[:j + 1]
     if orthog == "cgs2":
-        wnorm_pre = _vnorm(w)
-        h1 = Vj @ w
+        # [h1, ||w||^2] in one reduction, then h2, then the new norm
+        hw = _allsum(torch.cat([Vj @ w, torch.sum(w * w)[None]]), group)
+        h1 = hw[:-1]
         w = w - h1 @ Vj
-        h2 = Vj @ w
+        h2 = _allsum(Vj @ w, group)
         w = w - h2 @ Vj
-        hw = torch.cat([h1 + h2, _vnorm(w)[None], wnorm_pre[None]])
+        hw = torch.cat([h1 + h2, _vnorm(w, group)[None],
+                        torch.sqrt(hw[-1])[None]])
         hv = _host(hw, npdt)
         h, wnorm, wnorm_pre = hv[:j + 1], hv[j + 1], hv[j + 2]
     else:
@@ -156,7 +175,7 @@ def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
         # with a second pass when the projection removed more than
         # 1/sqrt(2) of w (DGKS)
         def cgs_pass(w):
-            dots = torch.cat([Vj, w[None]]) @ w
+            dots = _allsum(torch.cat([Vj, w[None]]) @ w, group)
             hv = _host(dots, npdt)
             hp, ww = hv[:-1], hv[-1]
             w = w - dots[:-1] @ Vj
@@ -234,16 +253,16 @@ def _arnoldi_solution(state: ArnoldiState, x0: torch.Tensor, M: Callable,
 
 def _cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
            m: int, M: Callable, use_z: bool, orthog: str = "cgs2",
-           aug: torch.Tensor | None = None) -> KrylovResult:
+           aug: torch.Tensor | None = None, group=None) -> KrylovResult:
     """One (F)GMRES cycle of at most m iterations (`aug`: see
     `_arnoldi_step`)."""
     if orthog not in ("cgs2", "cgs1"):
         raise ValueError(f"unknown orthog {orthog!r}")
-    safe_bnorm = _safe_bnorm(b)
-    state = _arnoldi_init(matvec, b, x0, tol, m, use_z, safe_bnorm)
+    safe_bnorm = _safe_bnorm(b, group)
+    state = _arnoldi_init(matvec, b, x0, tol, m, use_z, safe_bnorm, group)
     while not state.done and state.j < m:
         _arnoldi_step(state, matvec, M, b.shape, tol, use_z, orthog,
-                      safe_bnorm, aug)
+                      safe_bnorm, aug, group)
     return _arnoldi_solution(state, x0, M, use_z, safe_bnorm)
 
 
@@ -251,7 +270,7 @@ def fgmres_resumable(matvec: Callable, b: torch.Tensor,
                      x0: torch.Tensor | None = None, tol: float = 1e-8,
                      maxiter: int = 100, M: Callable | None = None,
                      orthog: str = "cgs2", state: ArnoldiState | None = None,
-                     max_steps: int | None = None
+                     max_steps: int | None = None, group=None
                      ) -> tuple[KrylovResult, ArnoldiState]:
     """Flexible GMRES that can stop mid-solve and resume exactly.
 
@@ -265,9 +284,10 @@ def fgmres_resumable(matvec: Callable, b: torch.Tensor,
     if x0 is None:
         x0 = torch.zeros_like(b)
     M = _identity if M is None else M
-    safe_bnorm = _safe_bnorm(b)
+    safe_bnorm = _safe_bnorm(b, group)
     if state is None:
-        state = _arnoldi_init(matvec, b, x0, tol, maxiter, True, safe_bnorm)
+        state = _arnoldi_init(matvec, b, x0, tol, maxiter, True, safe_bnorm,
+                              group)
     elif state.H.shape[1] != maxiter:
         raise ValueError(f"state is of a {state.H.shape[1]}-iteration "
                          f"cycle, maxiter is {maxiter}")
@@ -275,14 +295,15 @@ def fgmres_resumable(matvec: Callable, b: torch.Tensor,
                                                    maxiter)
     while not state.done and state.j < j_stop:
         _arnoldi_step(state, matvec, M, b.shape, tol, True, orthog,
-                      safe_bnorm)
+                      safe_bnorm, group=group)
     return _arnoldi_solution(state, x0, M, True, safe_bnorm), state
 
 
 def fgmres(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
            tol: float = 1e-8, maxiter: int = 100,
            M: Callable | None = None, restart: int | None = None,
-           orthog: str = "cgs2", aug_k: int = 0) -> KrylovResult:
+           orthog: str = "cgs2", aug_k: int = 0,
+           group=None) -> KrylovResult:
     """Flexible right-preconditioned GMRES.
 
     No restarts by default: maxiter is the Krylov dimension. Pass `restart`
@@ -290,38 +311,43 @@ def fgmres(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
 
     aug_k > 0 (restarted solves only) enables LGMRES-style augmented
     restarts: the LAST aug_k flexible directions of each cycle are the
-    normalized corrections dx of the previous cycles."""
+    normalized corrections dx of the previous cycles. `group`: the process
+    group whose ranks hold the vectors' bands (module docstring)."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     M = _identity if M is None else M
     if restart is None or restart >= maxiter:
-        return _cycle(matvec, b, x0, tol, maxiter, M, True, orthog)
+        return _cycle(matvec, b, x0, tol, maxiter, M, True, orthog,
+                      group=group)
     return _restarted(matvec, b, x0, tol, maxiter, restart, M, True, orthog,
-                      aug_k)
+                      aug_k, group)
 
 
 def gmres(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
           tol: float = 1e-8, maxiter: int = 100,
           M: Callable | None = None, restart: int | None = None,
-          orthog: str = "cgs2") -> KrylovResult:
+          orthog: str = "cgs2", group=None) -> KrylovResult:
     """Right-preconditioned GMRES with a fixed preconditioner: no Z basis;
     M is applied once more at the solution update."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     M = _identity if M is None else M
     if restart is None or restart >= maxiter:
-        return _cycle(matvec, b, x0, tol, maxiter, M, False, orthog)
-    return _restarted(matvec, b, x0, tol, maxiter, restart, M, False, orthog)
+        return _cycle(matvec, b, x0, tol, maxiter, M, False, orthog,
+                      group=group)
+    return _restarted(matvec, b, x0, tol, maxiter, restart, M, False, orthog,
+                      group=group)
 
 
-def residual_norm(matvec: Callable, b: torch.Tensor, x: torch.Tensor):
+def residual_norm(matvec: Callable, b: torch.Tensor, x: torch.Tensor,
+                  group=None):
     """(r, ||r||) = (b - A x, its 2-norm)."""
     r = b - matvec(x)
-    return r, _vnorm(r)
+    return r, _vnorm(r, group)
 
 
 def _restarted(matvec, b, x0, tol, maxiter, restart, M, use_z, orthog,
-               aug_k: int = 0) -> KrylovResult:
+               aug_k: int = 0, group=None) -> KrylovResult:
     """Host loop over cycles with a stitched history: the initial residual,
     then one entry per iteration (each later cycle's entry 0 duplicates the
     previous cycle's final residual and is dropped), so iters equals
@@ -342,11 +368,12 @@ def _restarted(matvec, b, x0, tol, maxiter, restart, M, use_z, orthog,
         # aug needs room for a genuine Krylov part (cycle > k+1); the final
         # short cycle runs plain
         aug = torch.stack(augs) if augs and cycle > len(augs) + 1 else None
-        result = _cycle(matvec, b, x, tol, cycle, M, use_z, orthog, aug)
+        result = _cycle(matvec, b, x, tol, cycle, M, use_z, orthog, aug,
+                        group)
         it = result.iters
         if aug_k > 0 and it > 0:
             dx = result.x - x
-            nrm = float(_vnorm(dx))
+            nrm = float(_vnorm(dx, group))
             augs = (augs + [dx / nrm])[-aug_k:] if nrm > 0 else []
         if not result.converged and it < cycle:
             augs = []
@@ -365,37 +392,37 @@ def _restarted(matvec, b, x0, tol, maxiter, restart, M, use_z, orthog,
 
 
 def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
-       tol: float = 1e-8, maxiter: int = 200, M: Callable = _identity
-       ) -> KrylovResult:
+       tol: float = 1e-8, maxiter: int = 200, M: Callable = _identity,
+       group=None) -> KrylovResult:
     """Preconditioned conjugate gradients for SPD operators."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     npdt = _np_dtype(b.dtype)
-    b_norm = float(_vnorm(b))
+    b_norm = float(_vnorm(b, group))
     safe_bnorm = 1.0 if b_norm == 0 else b_norm
 
     x = x0
     r = b - matvec(x0)
     z = M(r)
     p = z
-    rz = _vdot(r, z)
-    rn = float(_vnorm(r))
+    rz = _vdot(r, z, group)
+    rn = float(_vnorm(r, group))
     hist = np.full(maxiter + 1, np.nan, npdt)
     hist[0] = rn
     done = rn / safe_bnorm < tol
     j = 0
     while not done and j < maxiter:
         Ap = matvec(p)
-        pAp = _vdot(p, Ap)
+        pAp = _vdot(p, Ap, group)
         alpha = torch.where(pAp != 0, rz / pAp, torch.zeros_like(pAp))
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = _vdot(r, z)
+        rz_new = _vdot(r, z, group)
         beta = torch.where(rz != 0, rz_new / rz, torch.zeros_like(rz))
         p = z + beta * p
         rz = rz_new
-        rn = float(_vnorm(r))
+        rn = float(_vnorm(r, group))
         hist[j + 1] = rn
         j += 1
         done = rn / safe_bnorm < tol

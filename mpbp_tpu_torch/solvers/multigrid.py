@@ -13,6 +13,17 @@ kernel K1 (`ops.cuda_stencil.f_apply`).
 
 Every level is built in f64 and then cast, and the coarsest pseudo-inverse
 is computed in f64 on the host and moved to the device once.
+
+On row bands (`ring`, a `parallel/halo.Ring`: the sharded path) every rank
+builds the whole hierarchy, as above, and applies it on its band of rows
+while a level's rows split into even bands of at least 2 rows a rank
+(`banded_depth`): the smoothers and residuals exchange one halo row with
+the ring neighbours (the velocity levels through kernel K3 at p = 0), the
+2x2 restrictions stay inside a band, and the y-face prolongation takes the
+next band's first row. Below that, the level's vector is gathered onto
+every rank, the rest of the V-cycle runs replicated, and each rank keeps
+its band of the result. The pressure solver's mean projection is a global
+mean. Without a ring nothing changes.
 """
 
 from __future__ import annotations
@@ -77,9 +88,9 @@ def _gtg_from_theta(T_n: torch.Tensor, n: int, d_p: float, d_div: float,
 
 
 def restrict_cell(x: torch.Tensor) -> torch.Tensor:
-    """Full-weighting 2x2 cell average: (..., n, n) -> (..., n/2, n/2)."""
-    n = x.shape[-1]
-    return x.reshape(*x.shape[:-2], n // 2, 2, n // 2, 2).mean(dim=(-3, -1))
+    """Full-weighting 2x2 cell average: (..., r, c) -> (..., r/2, c/2)."""
+    r, c = x.shape[-2:]
+    return x.reshape(*x.shape[:-2], r // 2, 2, c // 2, 2).mean(dim=(-3, -1))
 
 
 def prolong_cell(x: torch.Tensor) -> torch.Tensor:
@@ -100,12 +111,13 @@ class MGLevel:
         return self.flux_apply(x)
 
 
-def _scalar_flux_apply(op64: StencilOperator, dtype) -> Callable:
+def _scalar_flux_apply(op64: StencilOperator, dtype, ring=None) -> Callable:
     """Difference-form apply for a single-field ("p") stencil from f64
     coefficient planes: out = sum_off c*(shift(x)-x) + rowsum*x, with the
     row sum accumulated exactly in f64 before the cast. In f32 the
     coefficient-form apply loses the near-kernel (weights ~n^2 cancel to ~0
-    on smooth modes), which floors the pressure multigrid."""
+    on smooth modes), which floors the pressure multigrid. With `ring`, the
+    apply on this rank's band, from its rows extended by the halo."""
     offmap64 = op64.terms[("p", "p")]
     rowsum = None
     for c in offmap64.values():
@@ -115,13 +127,31 @@ def _scalar_flux_apply(op64: StencilOperator, dtype) -> Callable:
     planes = {off: c.to(dtype) for off, c in offmap64.items()
               if off != (0, 0)}
 
-    def apply(x: torch.Tensor) -> torch.Tensor:
+    if ring is None:
+        def apply(x: torch.Tensor) -> torch.Tensor:
+            acc = rowsum * x
+            for (dr, dc), c in planes.items():
+                acc = acc + c * (shift(x, dr, dc) - x)
+            return acc
+
+        return apply
+
+    rowsum = ring.band(rowsum)
+    planes = {off: ring.band(c) for off, c in planes.items()}
+    H = max(abs(dr) for dr, _ in planes)
+
+    def apply_band(x: torch.Tensor) -> torch.Tensor:
+        nl = x.shape[-2]
+        xe = ring.extend(x, H)
         acc = rowsum * x
         for (dr, dc), c in planes.items():
-            acc = acc + c * (shift(x, dr, dc) - x)
+            sl = xe[H + dr:H + dr + nl]
+            if dc:
+                sl = torch.roll(sl, -dc, dims=-1)
+            acc = acc + c * (sl - x)
         return acc
 
-    return apply
+    return apply_band
 
 
 def build_pressure_mg(mop: MultiphaseOperator, n_coarsest: int = 8,
@@ -150,6 +180,34 @@ def build_pressure_mg(mop: MultiphaseOperator, n_coarsest: int = 8,
     return levels
 
 
+def banded_depth(levels, ring) -> int:
+    """How many leading levels run on bands: those above the coarsest whose
+    rows split into even bands (>= 2 rows) over the ring, so that a 2x2
+    restriction stays inside every band."""
+    depth = 0
+    for level in levels[:-1]:
+        if level.n % ring.size or (level.n // ring.size) % 2:
+            break
+        depth += 1
+    return depth
+
+
+def band_pressure_levels(mop: MultiphaseOperator, levels: list[MGLevel],
+                         ring, dtype=None) -> list[MGLevel]:
+    """The banded prefix of a pressure hierarchy (`banded_depth`): each
+    level's diagonal and flux apply on this rank's band."""
+    dtype = dtype or levels[0].diag.dtype
+    d_p, d_div = mop.params["d_p"], mop.params["d_div"]
+    T = mop.phase_n.cell.to(torch.float64)
+    out = []
+    for level in levels[:banded_depth(levels, ring)]:
+        op64 = _gtg_from_theta(T, level.n, d_p, d_div, torch.float64)
+        out.append(MGLevel(level.n, level.op, ring.band(level.diag), None,
+                           _scalar_flux_apply(op64, dtype, ring)))
+        T = restrict_cell(T)
+    return out
+
+
 def _smooth(level: MGLevel, b, x, sweeps: int, damping: float):
     inv_d = damping / level.diag
     for _ in range(sweeps):
@@ -175,24 +233,54 @@ def v_cycle(levels: list[MGLevel], b: torch.Tensor, x: torch.Tensor,
     return _smooth(level, b, x, post, damping)
 
 
+def _band_v_cycle(levels: list[MGLevel], bands: list[MGLevel], ring,
+                  b: torch.Tensor, x: torch.Tensor | None, lev: int = 0,
+                  pre: int = 2, post: int = 2,
+                  damping: float = 0.8) -> torch.Tensor:
+    """`v_cycle` on this rank's band (x None: zeros); below the banded
+    prefix, replicated on the gathered vector."""
+    if lev == len(bands):
+        bf = ring.gather(b)
+        xf = torch.zeros_like(bf) if x is None else ring.gather(x)
+        return ring.band(v_cycle(levels, bf, xf, lev, pre, post, damping))
+    level = bands[lev]
+    x = torch.zeros_like(b) if x is None else x
+    x = _smooth(level, b, x, pre, damping)
+    r = b - level.apply_p(x)
+    ec = _band_v_cycle(levels, bands, ring, restrict_cell(r), None, lev + 1,
+                       pre, post, damping)
+    x = x + prolong_cell(ec)
+    return _smooth(level, b, x, post, damping)
+
+
 @dataclasses.dataclass(eq=False)
 class MGPressureSolver:
     """Fixed-cycle multigrid inner solve for GtG (legal under a flexible
-    outer Krylov method)."""
+    outer Krylov method). With `ring` it takes this rank's band (module
+    docstring); `bands` is the banded prefix of `levels`."""
 
     levels: list[MGLevel]
     cycles: int = 2
     project_mean: bool = True
+    ring: object = None
+    bands: list = dataclasses.field(default_factory=list)
 
     @classmethod
     def of(cls, mop: MultiphaseOperator, cycles: int = 2,
-           n_coarsest: int = 8) -> "MGPressureSolver":
-        return cls(build_pressure_mg(mop, n_coarsest), cycles)
+           n_coarsest: int = 8, ring=None) -> "MGPressureSolver":
+        levels = build_pressure_mg(mop, n_coarsest)
+        if ring is None:
+            return cls(levels, cycles)
+        return cls(levels, cycles, ring=ring,
+                   bands=band_pressure_levels(mop, levels, ring))
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        """Accepts the flat (n^2,) or the grid (n, n) layout; the output
-        shape matches the input."""
+        """Accepts the flat (n^2,) or the grid (n, n) layout (a band: the
+        flat (n_loc n,) or (n_loc, n)); the output shape matches the
+        input."""
         n = self.levels[0].n
+        if self.ring is not None:
+            return self._band_call(v, n)
         b = v.reshape(n, n)
         if self.project_mean:
             b = b - torch.mean(b)
@@ -201,6 +289,18 @@ class MGPressureSolver:
             x = v_cycle(self.levels, b, x)
         if self.project_mean:
             x = x - torch.mean(x)
+        return x.reshape(v.shape)
+
+    def _band_call(self, v: torch.Tensor, n: int) -> torch.Tensor:
+        ring = self.ring
+        b = v.reshape(ring.rows(n), n)
+        if self.project_mean:
+            b = b - ring.mean(b, n * n)
+        x = None
+        for _ in range(self.cycles):
+            x = _band_v_cycle(self.levels, self.bands, ring, b, x)
+        if self.project_mean:
+            x = x - ring.mean(x, n * n)
         return x.reshape(v.shape)
 
 
@@ -240,9 +340,17 @@ def prolong_yface(vc: torch.Tensor) -> torch.Tensor:
     return fine.repeat_interleave(2, dim=-1)
 
 
+def prolong_yface_band(vc: torch.Tensor, below: torch.Tensor) -> torch.Tensor:
+    """`prolong_yface` on a band, given `below`, the next band's first row
+    (the periodic roll's one row from outside the band)."""
+    nxt = torch.cat([vc[..., 1:, :], below], dim=-2)
+    down = 0.5 * (vc + nxt)
+    fine = torch.stack([vc, down], dim=-2).flatten(-3, -2)
+    return fine.repeat_interleave(2, dim=-1)
+
+
 def _restrict_vel(x: torch.Tensor) -> torch.Tensor:
-    nc = x.shape[-1] // 2
-    out = x.new_empty((4, nc, nc))
+    out = x.new_empty((4, x.shape[-2] // 2, x.shape[-1] // 2))
     out[_XF] = restrict_xface(x[_XF])
     out[_YF] = restrict_yface(x[_YF])
     return out
@@ -253,6 +361,14 @@ def _prolong_vel(x: torch.Tensor) -> torch.Tensor:
     out = x.new_empty((4, nf, nf))
     out[_XF] = prolong_xface(x[_XF])
     out[_YF] = prolong_yface(x[_YF])
+    return out
+
+
+def _prolong_vel_band(x: torch.Tensor, ring) -> torch.Tensor:
+    _, below = ring.post_halo(x[_YF], 0, 1).wait()
+    out = x.new_empty((4, 2 * x.shape[-2], 2 * x.shape[-1]))
+    out[_XF] = prolong_xface(x[_XF])
+    out[_YF] = prolong_yface_band(x[_YF], below)
     return out
 
 
@@ -311,6 +427,31 @@ def build_velocity_mg(mop: MultiphaseOperator, n_coarsest: int = 8,
     return levels
 
 
+def band_velocity_levels(mop: MultiphaseOperator, levels: list[VelLevel],
+                         ring, dtype=None) -> list[VelLevel]:
+    """The banded prefix of a velocity hierarchy (`banded_depth`): each
+    level's diagonals on this rank's band and its F apply as kernel K3 at
+    p = 0 on the halo-extended band, from the level's theta planes."""
+    from mpbp_tpu_torch.parallel.pallas_sharded import make_band_apply
+
+    dtype = dtype or levels[0].diag.dtype
+    p = mop.params
+    T = mop.phase_n.cell.to(torch.float64)
+    out = []
+    for lev, level in enumerate(levels[:banded_depth(levels, ring)]):
+        grid = MACGrid(level.n, dtype=torch.float64, device=T.device)
+        ph = (mop.phase_n if lev == 0
+              else _phase_fields_from_cell(grid, T))
+        planes = (ph.cell.to(dtype).contiguous(),
+                  ph.xface_pt.to(dtype).contiguous(),
+                  ph.yface_pt.to(dtype).contiguous())
+        out.append(VelLevel(level.n, level.op, ring.band(level.diag), None,
+                            make_band_apply(*planes, p, grid.dx, grid.dy,
+                                            ring, fields=4)))
+        T = restrict_cell(T)
+    return out
+
+
 def _vel_smooth(level: VelLevel, b: torch.Tensor, x: torch.Tensor,
                 sweeps: int, damping: float) -> torch.Tensor:
     inv_d = damping / level.diag
@@ -334,21 +475,56 @@ def vel_v_cycle(levels: list[VelLevel], b: torch.Tensor, x: torch.Tensor,
     return _vel_smooth(level, b, x, post, damping)
 
 
+def _band_vel_v_cycle(levels: list[VelLevel], bands: list[VelLevel], ring,
+                      b: torch.Tensor, x: torch.Tensor | None, lev: int = 0,
+                      pre: int = 2, post: int = 2,
+                      damping: float = 0.7) -> torch.Tensor:
+    """`vel_v_cycle` on this rank's band (x None: zeros); below the banded
+    prefix, replicated on the gathered vector."""
+    if lev == len(bands):
+        bf = ring.gather(b)
+        xf = torch.zeros_like(bf) if x is None else ring.gather(x)
+        return ring.band(vel_v_cycle(levels, bf, xf, lev, pre, post,
+                                     damping))
+    level = bands[lev]
+    x = torch.zeros_like(b) if x is None else x
+    x = _vel_smooth(level, b, x, pre, damping)
+    r = b - level.apply(x)
+    ec = _band_vel_v_cycle(levels, bands, ring, _restrict_vel(r), None,
+                           lev + 1, pre, post, damping)
+    x = x + _prolong_vel_band(ec, ring)
+    return _vel_smooth(level, b, x, post, damping)
+
+
 @dataclasses.dataclass(eq=False)
 class MGVelocitySolver:
     """Fixed-cycle velocity-block MG on flat (4 n^2,) or stacked (4, n, n)
-    velocity vectors; the output shape matches the input."""
+    velocity vectors; the output shape matches the input. With `ring` it
+    takes this rank's band (4, n_loc, n) (module docstring)."""
 
     levels: list[VelLevel]
     cycles: int = 2
+    ring: object = None
+    bands: list = dataclasses.field(default_factory=list)
 
     @classmethod
     def of(cls, mop: MultiphaseOperator, cycles: int = 2,
-           n_coarsest: int = 8) -> "MGVelocitySolver":
-        return cls(build_velocity_mg(mop, n_coarsest), cycles)
+           n_coarsest: int = 8, ring=None) -> "MGVelocitySolver":
+        levels = build_velocity_mg(mop, n_coarsest)
+        if ring is None:
+            return cls(levels, cycles)
+        return cls(levels, cycles, ring=ring,
+                   bands=band_velocity_levels(mop, levels, ring))
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         n = self.levels[0].n
+        if self.ring is not None:
+            b = v.reshape(4, self.ring.rows(n), n)
+            x = None
+            for _ in range(self.cycles):
+                x = _band_vel_v_cycle(self.levels, self.bands, self.ring, b,
+                                      x)
+            return x.reshape(v.shape)
         b = v.reshape(4, n, n)
         x = torch.zeros_like(b)
         for _ in range(self.cycles):

@@ -23,6 +23,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mpbp_tpu_torch.models.fused import make_f_apply
 from mpbp_tpu_torch.models.multiphase import VEL_FIELDS, MultiphaseOperator
@@ -195,11 +196,17 @@ def make_lsc_pc(op: MultiphaseOperator, f_inner: Callable,
     return _lsc_apply(op, GtFG, f_inner, p_inner)
 
 
-def scaled32_apply(inner32: Callable, v64: torch.Tensor) -> torch.Tensor:
+def scaled32_apply(inner32: Callable, v64: torch.Tensor,
+                   group=None) -> torch.Tensor:
     """Run an f32 inner solver on an f64 input: scale-normalize before the
     cast (Krylov solves are scale-invariant; the input magnitude after the
-    LSC glue cancellations is not), solve in f32, rescale in f64."""
-    s = torch.clamp(torch.max(torch.abs(v64)), min=1e-300)
+    LSC glue cancellations is not), solve in f32, rescale in f64. On a
+    rank's band (`group`: the ranks holding the other bands) the scale is
+    the max over all of them."""
+    s = torch.max(torch.abs(v64))
+    if group is not None:
+        dist.all_reduce(s, op=dist.ReduceOp.MAX, group=group)
+    s = torch.clamp(s, min=1e-300)
     return inner32((v64 / s).to(torch.float32)).to(torch.float64) * s
 
 

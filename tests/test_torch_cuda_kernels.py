@@ -489,3 +489,100 @@ def test_slice8_kinds_on_card_match_cpu(cuda_device, kw):
     assert gpu.iters == cpu.iters
     scale = float(cpu.x.abs().max())
     assert float((gpu.x.cpu() - cpu.x).abs().max()) <= 1e-8 * scale
+
+
+def _k3_on_bands(op, x, splits):
+    """K3 on the grid cut into row bands of the given sizes, each extended
+    by its neighbours' edge rows (what the ring exchange delivers, wrapped
+    at the grid's ends), concatenated."""
+    tn, wx, wy = op.phase_n.cell, op.phase_n.xface_pt, op.phase_n.yface_pt
+    n = tn.shape[0]
+    outs, r0 = [], 0
+    for nl in splits:
+        ext = torch.arange(r0 - 1, r0 + nl + 1, device=x.device) % n
+        outs.append(cuda_stencil.a_apply_band(
+            tn[ext].contiguous(), wx[r0:r0 + nl].contiguous(),
+            wy[r0:r0 + nl].contiguous(), x[:, ext].contiguous(), op.params,
+            op.grid.dx, op.grid.dy, 1))
+        r0 += nl
+    return torch.cat(outs, dim=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [50, 512, 1000])
+def test_k3_on_four_exchanged_bands_equals_k2(cuda_device, dtype, n):
+    """The sharded matvec's arithmetic: K3 on 4 row bands (n=50: 13, 13,
+    12, 12 rows), each with the neighbour rows the halo exchange brings,
+    concatenated, bit-equal to K2 on the whole grid."""
+    op, x = _random_operator(n, dtype, cuda_device, seed=n + 3)
+    splits = [len(s) for s in np.array_split(np.arange(n), 4)]
+    before = cuda_stencil.LAUNCHES["a_apply_band"]
+    got = _k3_on_bands(op, x, splits)
+    assert cuda_stencil.LAUNCHES["a_apply_band"] == before + 4
+    k2 = cuda_stencil.a_apply(op.phase_n.cell, op.phase_n.xface_pt,
+                              op.phase_n.yface_pt, x, op.params, op.grid.dx,
+                              op.grid.dy)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k2)
+
+
+def test_sharded_solve_on_one_nccl_rank_matches_cpu_gloo(cuda_device):
+    """solve_multiphase_sharded on one NCCL rank on the card (K3 every
+    outer matvec and F apply) against the same call on one gloo rank on
+    the CPU: converged, count within 2, L2 within 1%."""
+    import torch.distributed as dist
+
+    from mpbp_tpu_torch.drivers import solve_multiphase_sharded
+
+    kw = dict(n=64, eta_n=100.0, pc="mg", precision="hybrid", tol=1e-8,
+              maxiter=40)
+    before = cuda_stencil.LAUNCHES["a_apply_band"]
+    try:
+        gpu = solve_multiphase_sharded(**kw, device=cuda_device)
+        assert dist.get_backend() == "nccl"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert cuda_stencil.LAUNCHES["a_apply_band"] > before
+    try:
+        cpu = solve_multiphase_sharded(**kw, device="cpu")
+        assert dist.get_backend() == "gloo"
+    finally:
+        dist.destroy_process_group()
+    msg = f"card {gpu.iters}, cpu {cpu.iters}"
+    assert gpu.converged and cpu.converged, msg
+    assert abs(gpu.iters - cpu.iters) <= 2, msg
+    assert gpu.params["true_relres"] <= 10 * kw["tol"]
+    assert abs(gpu.error_norms["l2"] - cpu.error_norms["l2"]) <= \
+        0.01 * cpu.error_norms["l2"]
+
+
+def test_sharded_solve_on_four_nccl_ranks_matches_one(cuda_device, tmp_path):
+    """solve_multiphase_sharded on 4 NCCL ranks, one card each (halo rows
+    through NCCL point to point, all-reduces, the coarse MG gathers),
+    against the same call on one NCCL rank: converged, counts within 2,
+    L2 within 1%, K3 launched on every rank. Needs 4 cards."""
+    import torch.distributed as dist
+
+    import torch_rank_fns as rf
+    from mpbp_tpu_torch.drivers import solve_multiphase_sharded
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 NVIDIA GPUs (one NCCL rank a card)")
+    kw = dict(n=256, eta_n=100.0, pc="mg", precision="hybrid", tol=1e-10,
+              maxiter=60)
+    four = rf.run_ranks("driver", 4, tmp_path, timeout=600, device="cuda",
+                        **kw)
+    try:
+        one = solve_multiphase_sharded(**kw, device=cuda_device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    msg = f"4 ranks {four[0]['iters']}, 1 rank {one.iters}"
+    assert all(r["devices"] == 4 and r["k3_launches"] > 0 for r in four)
+    assert all(r["iters"] == four[0]["iters"] for r in four)
+    assert four[0]["converged"] and one.converged, msg
+    assert abs(four[0]["iters"] - one.iters) <= 2, msg
+    assert four[0]["true_relres"] <= kw["tol"]
+    assert abs(four[0]["l2"] - one.error_norms["l2"]) <= \
+        0.01 * one.error_norms["l2"]

@@ -173,8 +173,9 @@ def test_lost_column_restarts_plain(monkeypatch):
     At = torch.as_tensor(A)
     seen, cycle = [], krylov._cycle
 
-    def spy(matvec, b, x0, tol, m, M, use_z, orthog="cgs2", aug=None):
-        res = cycle(matvec, b, x0, tol, m, M, use_z, orthog, aug)
+    def spy(matvec, b, x0, tol, m, M, use_z, orthog="cgs2", aug=None,
+            group=None):
+        res = cycle(matvec, b, x0, tol, m, M, use_z, orthog, aug, group)
         seen.append((0 if aug is None else aug.shape[0], res.iters))
         if len(seen) == 2:      # as if the second cycle lost its column
             res = res._replace(iters=res.iters - 1, converged=False)

@@ -1,7 +1,8 @@
 """The port runs without JAX: importing its entry points (the drivers, the
 CLI, the two benchmarks, every ops module, the
 mixed-precision solver and the eigensolver, the Stokes model, the
-checkpoint, plot, CSV and metrics utilities and `chip_smoke.py`) in a
+checkpoint, plot, CSV and metrics utilities, every module of `parallel/`
+and `chip_smoke.py`) in a
 fresh interpreter where
 `import jax` fails loads no JAX module, and no module of the JAX package
 `mpbp_tpu` either, not even one that does not import JAX: the port keeps
@@ -29,6 +30,8 @@ from mpbp_tpu_torch.ops import (cuda_dia, cuda_ell, cuda_stencil, dia,
                                 dispatch, ilu, sparse, spgemm, stencil,
                                 trisolve)
 from mpbp_tpu_torch.models import stokes
+from mpbp_tpu_torch.parallel import (block_ilu, distributed, halo,
+                                     pallas_sharded, sharded_dia, sharding)
 from mpbp_tpu_torch.solvers import eigen, mixed
 from mpbp_tpu_torch.utils import checkpoint, csv_export, metrics, plots
 print(json.dumps({

@@ -151,10 +151,14 @@ def test_lsc_mg_krylov_hybrid_converges():
                                                   rel=1e-2)
 
 
-def test_unported_modes_raise_and_bad_names_are_rejected():
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 13"):
-        cli.main(["solve", "--sharded", "--n", "8", "--device", "cpu"])
+def test_unported_modes_raise_and_bad_names_are_rejected(capsys):
+    # the sharded solve has no 'ir' configuration: a parser error, as in
+    # the JAX package's CLI
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["solve", "--sharded", "--precision", "ir", "--n", "8",
+                  "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "'ir' has no sharded configuration" in capsys.readouterr().err
     with pytest.raises(ValueError, match="restart"):
         solve_multiphase(n=8, pc="lsc_mg_full", true_res_monitor=True,
                          restart=5, device="cpu")
