@@ -20,7 +20,9 @@ yardstick only, the port never calls it.
                that fit in L2 once more after an L2 flush); at n=512 and
                2048 the operator's F or A as CSR @ x; K1 against K2's
                velocity rows at p = 0 (max difference, bit-equal or not).
-  4. mms     - A-apply MMS L2 error at n=32 through K2 in f64.
+  4. mms     - A-apply MMS L2 error at n=32 through K2 in f64; then each
+               block operator (D, G, XI, L) against its manufactured data
+               (models/mms.py) at n=256 and 512: the order, held > 1.85.
   5. slice   - the 512^2, eta_n=100 lsc_mg_full hybrid solve, cold then
                warm, with the kernel launch counts of the warm run.
   6. layers  - one more solve with synchronized timers around the outer
@@ -74,8 +76,8 @@ yardstick only, the port never calls it.
                K2 the outer matvec) in full f64: at n=32, where its count
                is held to the JAX package's; at n=128, the largest grid
                where the JAX package's settings converge in their budget,
-               cold then warm, and once more with K1 and K2 replaced by
-               their plain versions; then hybrid at n=64.
+               cold then warm; at n=64 with K1 and K2 replaced by their
+               plain versions; then hybrid at n=64.
  16. spectrum - (i) eigs on the 512^2 f64 A (K2 every Arnoldi step) against
                the same call through the plain a_matvec(fused=False); (ii)
                spectrum_report at n=64 with lsc_mg_full
@@ -94,7 +96,10 @@ yardstick only, the port never calls it.
                K3 on 4 row bands of a random 2048^2 state, each extended by
                a rank's halo rows, concatenated and held bit-equal to K2,
                f32 and f64, and the 1-rank `make_fused_apply_pallas_sharded`
-               likewise; then `solve_multiphase_sharded` at the JAX
+               likewise; the 256^2 hybrid driver solve with the rows over
+               both axes of the 1x1 `global_mesh_2d`, axis ("dcn", "ici"),
+               held to the 1-D solve bit for bit; then
+               `solve_multiphase_sharded` at the JAX
                package's SHARDED_r05.json rows, 1024^2 f64 mg and 2048^2
                hybrid with restart 24 (both tol 1e-10), each held to
                converged, true relres <= 1e-10 and finite values of the
@@ -105,7 +110,26 @@ yardstick only, the port never calls it.
                and that L2, the discretization error, is held within 1% of
                JAX's (tol 1e-10 leaves an algebraic error of ~1% of it at
                2048^2, whose sign and size follow the Krylov path).
-Each of phases 15-20 prints one JSON line with its seconds. The line
+ 21. at_scale - the single-device main path (`bench_solve`'s build and
+               solve, lsc_mg_full, eta_n=100) at the JAX package's
+               SOLVE_r05.json rows: 1024^2 hybrid unrestarted (tol 1e-10),
+               1024^2 ir with K2 (outer tol 1e-8) and 2048^2 hybrid with
+               restart 15, LGMRES aug_k 2, maxiter 120 (tol 1e-10). Each
+               row: a profiler window of its first two iterations (device
+               busy and idle share), then one solve on the built setup,
+               held to converged with a recomputed true relres <= tol
+               (going on from x where the estimate met tol and the true
+               residual did not), finite values of the right shape and
+               K1 and K2 launched; the count printed beside JAX's (not
+               held: counts follow rounding), with seconds, K1/K2
+               launches and peak device memory; at 2048^2 the restart
+               cycles and how many lost a column (F1) and ran plain. The
+               1024^2 L2s are held within 1% of JAX's; the 2048^2 solve
+               goes on from x to tol 1e-12 and that L2 is held within 1%
+               of SHARDED_r05.json's 2048^2 discretization error. The
+               setup memo and the device's cached blocks are dropped
+               before each row.
+Each of phases 15-21 prints one JSON line with its seconds. The line
 before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -128,10 +152,16 @@ from mpbp_tpu_torch import bench, bench_solve, drivers, native
 from mpbp_tpu_torch.drivers import (a_matvec, lsc_inners, pack_fields,
                                     solve_multiphase, spectrum_report)
 from mpbp_tpu_torch.models import mms
+from mpbp_tpu_torch.models.fields import (MACGrid, default_thn,
+                                          make_phase_fields)
 from mpbp_tpu_torch.models.stokes import (STOKES_FIELDS,
                                           make_stokes_operator, stokes_mms)
 from mpbp_tpu_torch.models.fused import _extend_rows, make_fused_apply_kernel
-from mpbp_tpu_torch.models.multiphase import (make_multiphase_operator,
+from mpbp_tpu_torch.models.multiphase import (divergence_operator,
+                                              drag_diagonal,
+                                              gradient_operator,
+                                              laplacian_operator,
+                                              make_multiphase_operator,
                                               operator_from_numpy)
 from mpbp_tpu_torch.ops import _build, cuda_dia, cuda_ell, cuda_stencil, ilu
 from mpbp_tpu_torch.ops.cuda_ell import BandedELL
@@ -145,6 +175,7 @@ from mpbp_tpu_torch.parallel.pallas_sharded import (
 from mpbp_tpu_torch.solvers import eigen
 from mpbp_tpu_torch.solvers import gmres as krylov
 from mpbp_tpu_torch.solvers import preconditioners as pcs
+from mpbp_tpu_torch.solvers.mixed import fgmres_ir
 from mpbp_tpu_torch.solvers.preconditioners import make_lsc_pc_mixed
 from mpbp_tpu_torch.utils import checkpoint
 from mpbp_tpu_torch.utils.norms import norms_report, weighted_l2
@@ -183,6 +214,8 @@ SLICE = dict(n=512, c=1, d=-1, xi=1, eta_n=100, eta_s=1, pc="lsc_mg_full",
              precision="hybrid", tol=1e-10, maxiter=40, inner_tol=1e-4,
              inner_iters=40)
 L2_DISCRETIZATION = 2.3039e-5     # the MMS discretization error at 512^2
+# mms: the order of each block operator (D, G, XI, L) between n/2 and n
+MMS_ORDER_N = 512
 # path (a): the reference-parity ILU solve with Neumann triangular solves;
 # the JAX package takes 275 iterations to L2 1.47103e-3 (f64, CPU)
 ILU_SLICE = dict(n=64, c=1, d=-1, xi=1, eta_n=100, eta_s=1, pc="lsc_ilut",
@@ -226,12 +259,15 @@ MONITOR = dict(n=16, eta_n=100, pc="lsc_mg_full", tol=1e-8, maxiter=100,
 # count with K1/K2 and with their plain versions differ on one card), so
 # there it is printed and the solve is held to converged, true relres and
 # the JAX package's L2; the count is held to JAX's at n=32, where rounding
-# does not move it
+# does not move it. The same solve with K1 and K2 replaced by their plain
+# versions runs at KRYLOV_PLAIN_N (at n=128 it took ~100 s of the script's
+# time limit)
 KRYLOV = dict(eta_n=100, eta_s=1, pc="lsc_mg_krylov", tol=1e-8,
               maxiter=200, inner_tol=1e-5, inner_iters=60)
 KRYLOV_N, KRYLOV_ITERS, KRYLOV_L2 = 128, 181, 3.69498e-4
 KRYLOV_COUNT_N, KRYLOV_COUNT_ITERS, KRYLOV_COUNT_L2 = 32, 17, 5.8412e-3
 KRYLOV_HYBRID_N, KRYLOV_HYBRID_L2, KRYLOV_HYBRID_JAX_F64 = 64, 1.46979e-3, 50
+KRYLOV_PLAIN_N, KRYLOV_PLAIN_ITERS, KRYLOV_PLAIN_L2 = 64, 50, 1.46979e-3
 # spectrum: (i) the reference's EPS settings on the 512^2 A; (ii)
 # benchmarks/spectrum_prod.py's report, whose n=64 clustering radius the
 # JAX package recorded as 94.194 (artifacts/SPECTRUM_r05.json)
@@ -251,12 +287,38 @@ CKPT_SOLVE = dict(tol=1e-10, maxiter=40)
 # iterations, JAX L2), each solve then continued to SHARDED_TIGHT_TOL for
 # its discretization error
 SHARDED_BAND_N, SHARDED_BANDS, SHARDED_TIGHT_TOL = 2048, 4, 1e-12
+# the rows over both axes of a 2-D (hosts, devices-per-host) mesh, 1x1 on
+# one rank: solve_multiphase_sharded's hybrid solve at 256^2, held to the
+# 1-D one's bits
+SHARDED_2D_AXIS = ("dcn", "ici")
+SHARDED_2D = dict(n=256, eta_n=100.0, pc="mg", precision="hybrid",
+                  tol=1e-10, maxiter=60)
 SHARDED_SOLVES = (
     ("1024^2 f64", dict(n=1024, eta_n=100.0, pc="mg", precision="f64",
                         tol=1e-10, maxiter=80), 45, 5.764696e-6),
     ("2048^2 hybrid", dict(n=2048, eta_n=100.0, pc="mg", precision="hybrid",
                            tol=1e-10, maxiter=80, restart=24), 52,
      1.435828e-6))
+
+
+# at_scale: the JAX package's single-device records at 1024^2 and 2048^2
+# (SOLVE_r05.json, benchmarks/solve_tpu.py: eta_n=100, lsc_mg_full) through
+# bench_solve: (label, bench_solve arguments, JAX count, JAX L2). The ir
+# row's count is outer / inner and its tol the outer one; the 2048^2 row
+# (restart 15, LGMRES aug_k 2, maxiter 120: JAX's fastest converged 2048^2)
+# goes on from x to AT_SCALE_TIGHT_TOL, whose L2 is held to the
+# discretization error SHARDED_r05.json records at 2048^2
+AT_SCALE = (
+    ("1024^2 hybrid unrestarted",
+     ["--n", "1024", "--mode", "hybrid", "--tol", "1e-10"], 21, 5.76030e-6),
+    ("1024^2 ir", ["--n", "1024", "--mode", "ir", "--tol", "1e-8",
+                   "--inner-tol", "1e-6", "--inner-maxiter", "40",
+                   "--max-outer", "5", "--pc-inner-tol", "1e-4",
+                   "--halo", "inkernel"], "3 / 117", 5.75893e-6),
+    ("2048^2 hybrid restart 15 aug_k 2",
+     ["--n", "2048", "--mode", "hybrid", "--tol", "1e-10", "--restart",
+      "15", "--aug-k", "2", "--max-outer", "15"], 72, 1.45602e-6))
+AT_SCALE_TIGHT_TOL, AT_SCALE_L2_2048 = 1e-12, 1.435828e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -495,6 +557,25 @@ def phase_mms(dev) -> None:
           "MMS apply did not launch K2")
     check(abs(l2 - 0.32587) < 1e-5, f"MMS L2 {l2} != 0.32587")
     say("mms", n=32, l2=f"{l2:.6f}", expect="0.32587")
+    # each block operator against its own manufactured data: the L2 error
+    # at n/2 and n, and the order between them
+    cases = {"D": (divergence_operator, mms.divergence_mms),
+             "G": (gradient_operator, mms.gradient_mms),
+             "XI": (lambda ph, grid: drag_diagonal(ph, 1.0, grid),
+                    lambda grid: mms.xi_mms(grid, 1.0)),
+             "L": (laplacian_operator, mms.laplacian_mms)}
+    for which, (make_op, data) in cases.items():
+        errs = []
+        for n in (MMS_ORDER_N // 2, MMS_ORDER_N):
+            grid = MACGrid(n, device=dev)
+            x, b = data(grid)
+            op = make_op(make_phase_fields(grid, default_thn), grid)
+            errs.append(float(weighted_l2(op.apply(x), b,
+                                          grid.dx * grid.dy)))
+        order = float(np.log2(errs[0] / errs[1]))
+        say("mms", operator=which, n=MMS_ORDER_N,
+            l2=f"{errs[0]:.6e},{errs[1]:.6e}", order=f"{order:.4f}")
+        check(order > 1.85, f"MMS {which}: order {order:.3f} <= 1.85")
 
 
 def run_slice(dev) -> tuple:
@@ -1418,7 +1499,7 @@ def _check_krylov(label: str, n: int, rep, l2_ref: float) -> tuple:
 
 def phase_krylov_slice(dev) -> dict:
     """lsc_mg_krylov in full f64: n=32 within 2 iterations of the JAX
-    package's count; n=128 cold, warm and with the plain K1/K2; then
+    package's count; n=128 cold and warm; n=64 with the plain K1/K2; then
     hybrid at n=64. Each converged, true relres < 1e-7, the JAX package's
     L2 within 1%."""
     t_phase = time.perf_counter()
@@ -1448,21 +1529,23 @@ def phase_krylov_slice(dev) -> dict:
                                    "lsc_mg_krylov solve")
         out[label] = dict(iters=rep.iters, seconds=secs, launches=launches,
                           l2=l2, true_relres=true_res)
-    # the same solve with K1 and K2 replaced by their plain versions: the
-    # two counts differ by rounding alone
+    # the same solve with K1 and K2 replaced by their plain versions (at
+    # n=128 the two counts differ by rounding alone: 148 and 176)
     kernels = cuda_stencil.f_apply, cuda_stencil.a_apply
     drivers._SETUP_CACHE.clear()
     cuda_stencil.f_apply = cuda_stencil.f_apply_reference
     cuda_stencil.a_apply = cuda_stencil.a_apply_reference
     try:
-        rep, secs, launches = _timed_solve(dev, n=KRYLOV_N, **KRYLOV)
+        rep, secs, launches = _timed_solve(dev, n=KRYLOV_PLAIN_N, **KRYLOV)
     finally:
         cuda_stencil.f_apply, cuda_stencil.a_apply = kernels
         drivers._SETUP_CACHE.clear()
-    true_res, l2 = _check_krylov("plain", KRYLOV_N, rep, KRYLOV_L2)
-    say("krylov_slice", run="plain K1/K2", n=KRYLOV_N, iters=rep.iters,
-        jax_iters=KRYLOV_ITERS, true_relres=f"{true_res:.3e}",
-        l2=f"{l2:.6e}", seconds=f"{secs:.3f}")
+    true_res, l2 = _check_krylov("plain", KRYLOV_PLAIN_N, rep,
+                                 KRYLOV_PLAIN_L2)
+    say("krylov_slice", run="plain K1/K2", n=KRYLOV_PLAIN_N,
+        iters=rep.iters, jax_iters=KRYLOV_PLAIN_ITERS,
+        true_relres=f"{true_res:.3e}", l2=f"{l2:.6e}",
+        seconds=f"{secs:.3f}")
     check(launches["f_apply"] == launches["a_apply"] == 0,
           "the plain lsc_mg_krylov solve launched a kernel")
     out["plain"] = dict(iters=rep.iters, seconds=secs, l2=l2,
@@ -1758,10 +1841,38 @@ def _bands_versus_k2(dev) -> dict:
     return out
 
 
+def _mesh_2d_versus_1d(dev) -> dict:
+    """`solve_multiphase_sharded` at SHARDED_2D with the rows over both
+    axes of the 1x1 `global_mesh_2d` ("dcn", "ici") against the 1-D axis:
+    the same count and x bit for bit, K3 every matvec of both."""
+    runs = {}
+    for axis in ("x", SHARDED_2D_AXIS):
+        _reset_counts()
+        t0 = time.perf_counter()
+        rep = drivers.solve_multiphase_sharded(**SHARDED_2D, device=dev,
+                                               axis=axis)
+        torch.cuda.synchronize()
+        runs[axis] = (rep, time.perf_counter() - t0,
+                      cuda_stencil.LAUNCHES["a_apply_band"])
+    (one, one_s, one_k3), (two, two_s, two_k3) = runs.values()
+    equal = bool(torch.equal(one.x, two.x))
+    say("sharded", case="1x1 2-D mesh axis ('dcn', 'ici') vs 1-D",
+        n=SHARDED_2D["n"], iters=f"{two.iters},{one.iters}",
+        x_bit_equal=equal, true_relres=f"{two.params['true_relres']:.3e}",
+        l2=f"{two.error_norms['l2']:.6e}", k3_launches=f"{two_k3},{one_k3}",
+        seconds=f"{two_s:.2f},{one_s:.2f}")
+    check(two.converged and two.params["devices"] == 1,
+          "the 2-D mesh solve did not converge on one rank")
+    check(equal and two.iters == one.iters and two_k3 == one_k3 > 0,
+          "the 1x1 2-D mesh solve is not the 1-D solve bit for bit")
+    return dict(iters=two.iters, x_bit_equal=equal, k3_launches=two_k3)
+
+
 def phase_sharded(dev) -> dict:
     """The row-sharded path on one NCCL rank (module docstring, 20). The
     K3 launches of each solve are counted from 0 just before it."""
     t_phase = time.perf_counter()
+    _free_device_memory()
     info = init_distributed(device=dev)
     check(info["backend"] == "nccl" and dist.get_backend() == "nccl"
           and info["num_processes"] == 1, f"not a 1-rank NCCL group: {info}")
@@ -1769,6 +1880,7 @@ def phase_sharded(dev) -> dict:
     out = {}
     try:
         out["bands"] = _bands_versus_k2(dev)
+        out["mesh_2d"] = _mesh_2d_versus_1d(dev)
         for label, kw, jax_iters, jax_l2 in SHARDED_SOLVES:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -1845,6 +1957,155 @@ def phase_sharded(dev) -> dict:
     return out
 
 
+def _free_device_memory() -> None:
+    """Drop the setup memo and return the cached blocks to the device, so
+    a phase's peak is its own."""
+    drivers._SETUP_CACHE.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _cycle_counts(outer) -> tuple[dict, object]:
+    """Count the cycles of the FGMRES whose matvec is `outer` ({cycles,
+    augmented, lost}; the inner solves' are not counted): `lost` are
+    cycles that ended early without converging, having dropped a column
+    (F1: the next cycle then runs without augmentations). Returns the
+    counts and the function to put back."""
+    counts = dict(cycles=0, augmented=0, lost=0)
+    cycle = krylov._cycle
+
+    def counted(matvec, b, x0, tol, m, M, use_z, orthog="cgs2", aug=None,
+                group=None):
+        res = cycle(matvec, b, x0, tol, m, M, use_z, orthog, aug, group)
+        if matvec is not outer:
+            return res
+        counts["cycles"] += 1
+        counts["augmented"] += aug is not None
+        counts["lost"] += not res.converged and res.iters < m
+        return res
+
+    krylov._cycle = counted
+    return counts, cycle
+
+
+def _continue(args, setup, x, tol: float, maxiter: int):
+    """The hybrid solve of `args` on `setup`, gone on from x to tol."""
+    return krylov.fgmres(setup.mv64, setup.b64, x0=x, tol=tol,
+                         maxiter=maxiter, M=setup.M,
+                         restart=args.restart or None, aug_k=args.aug_k)
+
+
+def _true_relres(setup, x) -> float:
+    _, rn = krylov.residual_norm(setup.mv64, setup.b64, x)
+    return float(rn / torch.linalg.norm(setup.b64))
+
+
+def _at_scale_row(dev, label: str, argv: list, jax_count, jax_l2) -> dict:
+    """One AT_SCALE row (module docstring, 21)."""
+    _free_device_memory()
+    args = bench_solve.parse_args(argv + ["--device", str(dev)])
+    t0 = time.perf_counter()
+    setup = bench_solve.build(args)
+    setup_s = time.perf_counter() - t0
+    ir = args.mode == "ir"
+    mv32 = bench_solve.ir_matvec(setup, args.halo) if ir else None
+    # two iterations of the solve, each one PC apply (ir: the first two f32
+    # FGMRES iterations of its first refinement step)
+    if ir:
+        window = lambda: fgmres_ir(
+            setup.mv64, mv32, setup.b64, tol=args.tol, max_outer=1,
+            inner_tol=args.inner_tol, inner_maxiter=2, M32=setup.M,
+            scale=setup.scale)
+    else:
+        window = lambda: krylov.fgmres(setup.mv64, setup.b64, tol=args.tol,
+                                       maxiter=2, M=setup.M)
+    say("at_scale", window=f"{label}, 2 iterations")
+    window_launches = profile_window(
+        "at_scale", window,
+        {"K1": "f_apply_kernel", "K2": "a_apply_kernel"}, top=6)
+    torch.cuda.synchronize()
+    cycles, cycle = _cycle_counts(setup.mv64)
+    try:
+        _reset_counts()
+        run = bench_solve.solve(args, setup, mv32)
+    finally:
+        krylov._cycle = cycle
+    launches = {k: cuda_stencil.LAUNCHES[k] for k in ("f_apply", "a_apply")}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    x, tol, iters = run["x"], args.tol, run["inner_iters"]
+    true_res, more = run["true_relres"], 0
+    # FGMRES stops on its estimate; where the recomputed residual lands
+    # above tol, go on from x until it meets tol too (the sharded driver's
+    # rule)
+    budget = 8 * args.max_outer - iters
+    while not ir and run["converged"] and true_res > tol and more < budget:
+        res = _continue(args, setup, x, tol, budget - more)
+        x, more = res.x, more + res.iters
+        true_res = _true_relres(setup, x)
+    dx, dy = setup.op64.grid.dx, setup.op64.grid.dy
+    l2 = norms_report(x, setup.u64, dx, dy)["l2"]
+    n = args.n
+    count = (f"{run['outer_iters']} / {iters}" if ir else
+             iters if not more else f"{iters} + {more}")
+    say("at_scale", solve=repr(label), iters=repr(count),
+        jax_iters=repr(jax_count), relres=f"{run['relres']:.3e}",
+        true_relres=f"{true_res:.3e}", tol=tol, l2=f"{l2:.6e}",
+        jax_l2=jax_l2, l2_vs_jax=f"{l2 / jax_l2 - 1:+.4%}",
+        seconds=f"{run['seconds']:.2f}", setup_s=f"{setup_s:.2f}",
+        launches=json.dumps(launches), peak_gb=f"{peak_gb:.2f}",
+        **({} if ir else {"cycles": json.dumps(cycles)}))
+    check(run["converged"] and true_res <= tol,
+          f"at_scale {label}: not converged to a true relres <= {tol} "
+          f"({true_res:.3e})")
+    check(tuple(x.shape) == (5 * n * n,) and bool(torch.isfinite(x).all()),
+          f"at_scale {label}: wrong shape or non-finite values")
+    check(launches["f_apply"] > 0 and launches["a_apply"] > 0,
+          f"at_scale {label}: K1 or K2 not launched ({launches})")
+    out = dict(n=n, iters=iters, more_iters=more,
+               outer_iters=run["outer_iters"], jax_iters=jax_count,
+               true_relres=true_res, l2=l2, seconds=run["seconds"],
+               setup_s=setup_s, launches=launches, peak_gb=peak_gb,
+               window_launches=window_launches, cycles=cycles)
+    if n < 2048:
+        check(abs(l2 - jax_l2) <= 0.01 * jax_l2,
+              f"at_scale {label}: L2 {l2:.6e} not within 1% of {jax_l2}")
+        return out
+    # tol 1e-10 leaves ~1% algebraic error in the 2048^2 L2, whose sign
+    # follows the Krylov path: go on to AT_SCALE_TIGHT_TOL for the
+    # discretization error
+    t0 = time.perf_counter()
+    res = _continue(args, setup, x, AT_SCALE_TIGHT_TOL, 8 * args.max_outer)
+    torch.cuda.synchronize()
+    l2_tight = norms_report(res.x, setup.u64, dx, dy)["l2"]
+    say("at_scale", solve=repr(label), continued_to=AT_SCALE_TIGHT_TOL,
+        more_iters=res.iters, relres=f"{res.relres:.3e}",
+        l2=f"{l2_tight:.6e}", jax_l2=AT_SCALE_L2_2048,
+        l2_vs_jax=f"{l2_tight / AT_SCALE_L2_2048 - 1:+.4%}",
+        algebraic_share_at_tol=f"{l2 / l2_tight - 1:+.4%}",
+        seconds=f"{time.perf_counter() - t0:.2f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    check(res.converged, f"at_scale {label} did not reach "
+                         f"{AT_SCALE_TIGHT_TOL}")
+    check(abs(l2_tight - AT_SCALE_L2_2048) <= 0.01 * AT_SCALE_L2_2048,
+          f"at_scale {label}: L2 {l2_tight:.6e} at {AT_SCALE_TIGHT_TOL} "
+          f"not within 1% of {AT_SCALE_L2_2048}")
+    out.update(tight_iters=res.iters, l2_tight=l2_tight)
+    return out
+
+
+def phase_at_scale(dev) -> dict:
+    """The single-device main path at the JAX package's 1024^2 and 2048^2
+    rows (module docstring, 21)."""
+    t_phase = time.perf_counter()
+    out = {}
+    for label, argv, jax_count, jax_l2 in AT_SCALE:
+        out[label] = _at_scale_row(dev, label, argv, jax_count, jax_l2)
+    _free_device_memory()
+    emit("at_scale", seconds=time.perf_counter() - t_phase, **out)
+    return out
+
+
 def kernel_row(kname: str, label: str, r: dict, launches: int) -> dict:
     """One entry of the kernels' JSON line."""
     return dict(name=f"{kname} ({label})", route="cuda",
@@ -1880,6 +2141,7 @@ def main() -> None:
     phase_stokes(dev)
     phase_checkpoint(dev)
     shard = phase_sharded(dev)
+    phase_at_scale(dev)
     nl, nd = ILU_SLICE["n"], DIA_LSC_N
     f_u = f"F n={nl} ILUT(400, 3e-5) U"
     kernels = [kernel_row(kname, label, r, launches)

@@ -16,7 +16,8 @@ held against the plain apply first; a mismatch raises.
 
 The setup (assembly, MMS vectors, preconditioner) is timed on its own;
 then one cold solve and one warm solve, each ending in a host sync. Prints
-one JSON line with the keys of `benchmarks/solve_tpu.py` and a few more.
+one JSON line with the keys of `benchmarks/solve_tpu.py` and a few more
+(the cold time, the true relres, the device and its peak memory).
 """
 
 from __future__ import annotations
@@ -202,6 +203,9 @@ def record(args: argparse.Namespace, setup: Setup, cold: dict,
         "true_relres": warm["true_relres"],
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else str(device)),
+        # the device's peak allocation over the setup and both solves
+        "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                    if device.type == "cuda" else None),
     }
 
 

@@ -416,7 +416,7 @@ class _ShardedSetup:
 
 def _sharded_setup(n, c, d, xi, eta_n, eta_s, pc, precision, inner_tol,
                    inner_iters, n_devices, problem, device,
-                   axis: str = "x") -> _ShardedSetup:
+                   axis: str | tuple[str, ...] = "x") -> _ShardedSetup:
     """Open (or join) the process group for `device`, build the mesh, the
     operators (whole on every rank) and the sharded PC."""
     from mpbp_tpu_torch.parallel import sharding as sh
@@ -472,7 +472,7 @@ def solve_multiphase_sharded(n: int = 256, c: float = 1.0, d: float = -1.0,
                              n_devices: int | None = None,
                              problem: str = "variable", *,
                              device: torch.device | str,
-                             axis: str = "x") -> SolveReport:
+                             axis: str | tuple[str, ...] = "x") -> SolveReport:
     """End-to-end MMS solve on the row-sharded mesh: the library entry
     point behind `python -m mpbp_tpu_torch solve --sharded`.
 

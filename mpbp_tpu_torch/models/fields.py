@@ -30,6 +30,11 @@ def default_thn(y, x):
     return 0.25 * torch.sin(2 * PI * x) * torch.sin(2 * PI * y) + 0.5
 
 
+def default_ths(y, x):
+    """Solvent volume fraction theta_s = 1 - theta_n."""
+    return 1.0 - default_thn(y, x)
+
+
 def constant_thn(value: float) -> Callable:
     """Constant-theta field (the theta_n = 0.75 variant)."""
     def f(y, x):

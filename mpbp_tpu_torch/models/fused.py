@@ -225,7 +225,7 @@ def make_f_apply(op: MultiphaseOperator) -> Callable:
 
 
 def make_f_apply_stacked(op: MultiphaseOperator, mesh=None,
-                         axis: str = "x") -> Callable:
+                         axis: str | tuple[str, ...] = "x") -> Callable:
     """Flux-form F matvec on stacked (4, n, n) velocity tensors, the form
     the sharded path keeps its vectors in. Without a mesh it is kernel K1
     on the whole grid; on a mesh it takes this rank's band (4, n_loc, n)

@@ -13,7 +13,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mpbp_tpu_torch.models.fields import MACGrid
+from mpbp_tpu_torch.models.fields import MACGrid, default_thn, default_ths
 
 PI = np.pi
 
@@ -161,5 +161,71 @@ def fill_sol_and_rhs(grid: MACGrid, prob: MMSProblem) -> tuple[dict, dict]:
         "us": grid.eval_at_ufaces(prob.b_s_x),
         "vs": grid.eval_at_vfaces(prob.b_s_y),
         "p": grid.eval_at_cells(prob.b_p),
+    }
+    return u, b
+
+
+# ---------------------------------------------------------------------------
+# Per-operator MMS data for the variable theta_n field: each returns (input
+# state, exact output state) of one block operator (D, G, XI or L), keyed
+# u/v/p, on the grid's device in its dtype.
+# ---------------------------------------------------------------------------
+def divergence_mms(grid: MACGrid):
+    """(velocity, exact D velocity) for `divergence_operator`."""
+    s, co = torch.sin, torch.cos
+    u = fill_state(grid,
+                   lambda y, x: s(2 * PI * x) * co(2 * PI * y),
+                   lambda y, x: co(2 * PI * x) * s(2 * PI * y), "u", "v")
+    b = {"p": grid.eval_at_cells(
+        lambda y, x: 2 * PI * co(2 * PI * x) * co(2 * PI * y)
+        + 0.5 * PI * s(4 * PI * x) * s(4 * PI * y))}
+    return u, b
+
+
+def gradient_mms(grid: MACGrid):
+    """(pressure, exact G pressure) for `gradient_operator`."""
+    s, co = torch.sin, torch.cos
+    p = {"p": grid.eval_at_cells(lambda y, x: s(2 * PI * x)
+                                 * co(2 * PI * y))}
+    b = {
+        "u": grid.eval_at_ufaces(
+            lambda y, x: PI / 2 * s(2 * PI * x) * s(2 * PI * y)
+            * co(2 * PI * x) * co(2 * PI * y)
+            + PI * co(2 * PI * x) * co(2 * PI * y)),
+        "v": grid.eval_at_vfaces(
+            lambda y, x: -PI / 2 * s(2 * PI * x) ** 2 * s(2 * PI * y) ** 2
+            - PI * s(2 * PI * x) * s(2 * PI * y)),
+    }
+    return p, b
+
+
+def xi_mms(grid: MACGrid, xi: float):
+    """(velocity, exact XI velocity) for `drag_diagonal`."""
+    s, co = torch.sin, torch.cos
+    ux = lambda y, x: s(2 * PI * x) * co(2 * PI * y)
+    uy = lambda y, x: co(2 * PI * x) * s(2 * PI * y)
+    u = fill_state(grid, ux, uy, "u", "v")
+    drag = lambda y, x: xi * default_thn(y, x) * default_ths(y, x)
+    b = {
+        "u": grid.eval_at_ufaces(lambda y, x: drag(y, x) * ux(y, x)),
+        "v": grid.eval_at_vfaces(lambda y, x: drag(y, x) * uy(y, x)),
+    }
+    return u, b
+
+
+def laplacian_mms(grid: MACGrid):
+    """(velocity, exact L velocity) for `laplacian_operator`."""
+    s, co = torch.sin, torch.cos
+    u = fill_state(grid,
+                   lambda y, x: s(2 * PI * x) * co(2 * PI * y),
+                   lambda y, x: co(2 * PI * x) * s(2 * PI * y), "u", "v")
+    b = {
+        "u": grid.eval_at_ufaces(
+            lambda y, x: -4 * PI * PI * s(2 * PI * x) ** 2 * s(2 * PI * y)
+            * co(2 * PI * y) - 4 * PI * PI * s(2 * PI * x) * co(2 * PI * y)),
+        "v": grid.eval_at_vfaces(
+            lambda y, x: -4 * PI * PI * s(2 * PI * x) * co(2 * PI * x)
+            * s(2 * PI * y) ** 2
+            - 4 * PI * PI * co(2 * PI * x) * s(2 * PI * y)),
     }
     return u, b

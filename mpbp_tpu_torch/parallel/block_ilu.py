@@ -26,7 +26,7 @@ import torch
 from mpbp_tpu_torch.ops.ilu import ILUPreconditioner
 from mpbp_tpu_torch.ops.sparse import CSRMatrix
 from mpbp_tpu_torch.ops.stencil import StencilOperator
-from mpbp_tpu_torch.parallel.halo import Ring
+from mpbp_tpu_torch.parallel.halo import Axis, Ring
 
 
 def local_block_csr(op: StencilOperator, s: int, n_shards: int,
@@ -85,7 +85,7 @@ class BlockJacobiILU:
     factor: ILUPreconditioner
 
     @classmethod
-    def of(cls, op: StencilOperator, mesh, axis: str = "x",
+    def of(cls, op: StencilOperator, mesh, axis: Axis = "x",
            dtype=torch.float64) -> "BlockJacobiILU":
         """Factor this rank's band-diagonal block of `op`."""
         ring = Ring.of(mesh, axis)

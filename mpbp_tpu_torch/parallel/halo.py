@@ -17,17 +17,28 @@ A ring of one rank copies its own rows (gloo cannot send to itself; the
 JAX package's identity `ppermute` is the same copy). At two ranks both
 neighbours are one peer; the two transfers to it are posted in one fixed
 order on both sides, so they pair up under NCCL, which ignores tags.
+
+An axis is one mesh-dimension name or a tuple of all of them (`Axis`):
+rows over both axes of `global_mesh_2d` are `("dcn", "ici")`, the JAX
+package's `PartitionSpec(("dcn", "ici"), ...)`. A tuple's ring numbers
+its bands row-major over the named dimensions, so with ranks numbered
+host-major the host seams fall on `dcn` boundaries.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence
+from typing import Mapping, Sequence, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from mpbp_tpu_torch.ops.stencil import StencilOperator
+
+# a mesh dimension's name, or a tuple naming every dimension of the mesh,
+# which one ring spans row-major
+Axis = Union[str, Sequence[str]]
 
 
 def halo_width(op: StencilOperator) -> int:
@@ -54,26 +65,49 @@ class _Pending:
         return self._before, self._after
 
 
+def _axis_dims(mesh, axis: Axis) -> tuple[int, ...]:
+    """The mesh dimensions an axis names, in its order; ValueError for a
+    name the mesh lacks or one named twice."""
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    known = tuple(mesh.mesh_dim_names or ())
+    bad = [a for a in names if a not in known]
+    if bad or not names or len(set(names)) != len(names):
+        raise ValueError(f"axis {axis!r} does not name distinct dimensions "
+                         f"of the mesh {known}")
+    return tuple(known.index(a) for a in names)
+
+
+def axis_size(mesh, axis: Axis) -> int:
+    """The number of bands of an axis: the product of its dimensions."""
+    return int(np.prod([mesh.size(d) for d in _axis_dims(mesh, axis)]))
+
+
 @dataclasses.dataclass(eq=False)
 class Ring:
     """One mesh axis as a periodic ring of bands: band `index` of `size`
     is this rank's, and `prev` / `next` are the global ranks of the bands
-    before and after it."""
+    before and after it. `order` holds, where it is not the band index
+    itself, the group rank of each band (`gather` reorders by it)."""
 
     group: object
     size: int
     index: int
     prev: int
     next: int
+    order: tuple[int, ...] | None = None
 
     @classmethod
-    def of(cls, mesh, axis: str = "x") -> "Ring":
-        group = mesh.get_group(axis)
-        size = mesh.size(mesh.mesh_dim_names.index(axis))
-        index = mesh.get_local_rank(axis)
-        return cls(group, size, index,
-                   dist.get_global_rank(group, (index - 1) % size),
-                   dist.get_global_rank(group, (index + 1) % size))
+    def of(cls, mesh, axis: Axis = "x") -> "Ring":
+        dims = _axis_dims(mesh, axis)
+        if len(dims) == 1:
+            name = mesh.mesh_dim_names[dims[0]]
+            group = mesh.get_group(name)
+            size = mesh.size(dims[0])
+            index = mesh.get_local_rank(name)
+            return cls(group, size, index,
+                       dist.get_global_rank(group, (index - 1) % size),
+                       dist.get_global_rank(group, (index + 1) % size))
+        return _spanning_ring(mesh, dims)
 
     def rows(self, n: int) -> int:
         """Rows a band of an n-row grid: n must split evenly."""
@@ -142,7 +176,26 @@ class Ring:
         """The replicated whole from every rank's band along `dim`."""
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
+        if self.order is not None:
+            parts = [parts[g] for g in self.order]
         return torch.cat(parts, dim=dim)
+
+
+def _spanning_ring(mesh, dims: tuple[int, ...]) -> Ring:
+    """The ring over all of the mesh's dimensions, its bands row-major over
+    `dims`. `dist.new_group` is collective over every rank, so each rank
+    creates the group once per (mesh, dims), at its first ring over them,
+    and the mesh keeps it."""
+    members = mesh.mesh.permute(*dims).reshape(-1).tolist()
+    groups = mesh.__dict__.setdefault("_mpbp_spanning_groups", {})
+    if dims not in groups:
+        groups[dims] = dist.new_group(sorted(members))
+    group = groups[dims]
+    size, index = len(members), members.index(dist.get_rank())
+    order = tuple(dist.get_group_rank(group, m) for m in members)
+    return Ring(group, size, index, members[(index - 1) % size],
+                members[(index + 1) % size],
+                None if order == tuple(range(size)) else order)
 
 
 def _cut_terms(op: StencilOperator, ring_r: Ring, ring_c: Ring | None):
@@ -181,7 +234,7 @@ def _seg_apply(terms, ext, pad: int, row0: int, nrows: int) -> dict:
     return out
 
 
-def halo_stencil_apply(op: StencilOperator, mesh, axis: str = "x",
+def halo_stencil_apply(op: StencilOperator, mesh, axis: Axis = "x",
                        overlap: bool = True):
     """apply(x_dict) -> y_dict on this rank's row bands: op.apply under
     the row partition, with an explicit halo exchange.

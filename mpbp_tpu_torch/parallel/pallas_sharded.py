@@ -22,19 +22,19 @@ import torch
 
 from mpbp_tpu_torch.models.multiphase import MultiphaseOperator
 from mpbp_tpu_torch.ops.cuda_stencil import a_apply_band
-from mpbp_tpu_torch.parallel.halo import Ring
+from mpbp_tpu_torch.parallel.halo import Axis, Ring, axis_size
 
 # the stencil's row radius: the halo K3 is given
 _H = 1
 
 
 def pallas_sharded_supported(op: MultiphaseOperator, mesh,
-                             axis: str = "x") -> bool:
+                             axis: Axis = "x") -> bool:
     """K3's condition: the grid's rows split evenly over the axis, at
     least one row a rank. (The TPU kernel's gate, whole 8-row sublane
     tiles a device, has no counterpart: K3 takes any band.)"""
     n = op.grid.n
-    nd = mesh.size(mesh.mesh_dim_names.index(axis))
+    nd = axis_size(mesh, axis)
     return n % nd == 0 and n // nd >= 1
 
 
@@ -64,7 +64,7 @@ def make_band_apply(Tn: torch.Tensor, Wnx: torch.Tensor, Wny: torch.Tensor,
 
 
 def make_fused_apply_pallas_sharded(op: MultiphaseOperator, mesh,
-                                    axis: str = "x") -> Callable:
+                                    axis: Axis = "x") -> Callable:
     """`mv(v)` on this rank's band (5, n_loc, n) of stacked state: the
     halo exchange and one K3 launch (the TPU's `interpret` and
     `block_rows` have no counterpart)."""

@@ -26,7 +26,7 @@ from typing import Callable
 import torch
 
 from mpbp_tpu_torch.ops.dia import DIAMatrix
-from mpbp_tpu_torch.parallel.halo import Ring
+from mpbp_tpu_torch.parallel.halo import Axis, Ring
 
 
 def _signed_offsets(offsets, N: int) -> list[int]:
@@ -34,14 +34,14 @@ def _signed_offsets(offsets, N: int) -> list[int]:
     return [((int(o) + N // 2) % N) - N // 2 for o in offsets]
 
 
-def shard_dia(A: DIAMatrix, mesh, axis: str = "x") -> DIAMatrix:
+def shard_dia(A: DIAMatrix, mesh, axis: Axis = "x") -> DIAMatrix:
     """This rank's band of the diagonal payload: data (K, N/P) under the
     global shape (N, N)."""
     return DIAMatrix(A.shape, A.offsets,
                      Ring.of(mesh, axis).band(A.data, dim=-1))
 
 
-def sharded_dia_matvec(A: DIAMatrix, mesh, axis: str = "x") -> Callable:
+def sharded_dia_matvec(A: DIAMatrix, mesh, axis: Axis = "x") -> Callable:
     """mv(x) -> y for x and y this rank's band of N/P entries. `A` is the
     whole matrix or its band (`shard_dia`): data (K, N) or (K, N/P)."""
     N, ncols = A.shape

@@ -34,16 +34,19 @@ import torch.distributed as dist
 from mpbp_tpu_torch.models.fused import make_f_apply_stacked
 from mpbp_tpu_torch.models.multiphase import ALL_FIELDS, MultiphaseOperator
 from mpbp_tpu_torch.ops.stencil import StencilOperator
-from mpbp_tpu_torch.parallel.distributed import global_mesh_1d
-from mpbp_tpu_torch.parallel.halo import Ring, halo_stencil_apply
+from mpbp_tpu_torch.parallel.distributed import (global_mesh_1d,
+                                                  global_mesh_2d)
+from mpbp_tpu_torch.parallel.halo import Axis, Ring, halo_stencil_apply
 from mpbp_tpu_torch.solvers import gmres as krylov
 from mpbp_tpu_torch.solvers.multigrid import MGPressureSolver, MGVelocitySolver
 from mpbp_tpu_torch.solvers.preconditioners import (lsc_products,
                                                     scaled32_apply)
 
 
-def make_mesh(n_devices: int | None = None, axis: str = "x"):
-    """1-D `DeviceMesh` over every rank of the open process group. Each
+def make_mesh(n_devices: int | None = None, axis: Axis = "x"):
+    """`DeviceMesh` over every rank of the open process group: 1-D with the
+    axis's name, or for a pair of names the 2-D (hosts, devices-per-host)
+    `global_mesh_2d`, whose rows the pair shards over both dimensions. Each
     rank is one device, so `n_devices` must be None or the world size (the
     JAX package takes the first n devices of one process)."""
     if not dist.is_initialized():
@@ -53,7 +56,12 @@ def make_mesh(n_devices: int | None = None, axis: str = "x"):
     if n_devices is not None and n_devices != world:
         raise ValueError(f"n_devices={n_devices}, but {world} ranks are "
                          "running: one device a rank")
-    return global_mesh_1d(axis)
+    if isinstance(axis, str):
+        return global_mesh_1d(axis)
+    if len(axis) != 2 or len(set(axis)) != 2:
+        raise ValueError(f"axis {axis!r}: one name, or two distinct names "
+                         "(hosts, devices-per-host)")
+    return global_mesh_2d(tuple(axis))
 
 
 def stack_state(state: dict, fields: Sequence[str] = ALL_FIELDS
@@ -67,20 +75,20 @@ def unstack_state(v: torch.Tensor, fields: Sequence[str] = ALL_FIELDS
     return {f: v[i] for i, f in enumerate(fields)}
 
 
-def vector_band(v: torch.Tensor, mesh, axis: str = "x") -> torch.Tensor:
+def vector_band(v: torch.Tensor, mesh, axis: Axis = "x") -> torch.Tensor:
     """This rank's band of rows of a replicated stacked vector (the JAX
     package's `device_put` with `vector_sharding`)."""
     return Ring.of(mesh, axis).band(v)
 
 
-def gather_vector(v: torch.Tensor, mesh, axis: str = "x") -> torch.Tensor:
+def gather_vector(v: torch.Tensor, mesh, axis: Axis = "x") -> torch.Tensor:
     """The whole stacked vector on every rank from its bands (the inverse
     of `vector_band`): an all-gather over the axis."""
     return Ring.of(mesh, axis).gather(v)
 
 
 def shard_multiphase(mop: MultiphaseOperator, mesh,
-                     axis: str = "x") -> MultiphaseOperator:
+                     axis: Axis = "x") -> MultiphaseOperator:
     """The system as the sharded solve takes it: every rank keeps the
     planes whole (each apply cuts its band when built), so this only checks
     that the grid's rows split evenly over the axis. (The JAX package's
@@ -89,7 +97,7 @@ def shard_multiphase(mop: MultiphaseOperator, mesh,
     return mop
 
 
-def _block_apply(op: StencilOperator, mesh, axis: str) -> Callable:
+def _block_apply(op: StencilOperator, mesh, axis: Axis) -> Callable:
     """op.apply on field dicts, on this rank's bands under a mesh."""
     return op.apply if mesh is None else halo_stencil_apply(op, mesh, axis)
 
@@ -97,7 +105,7 @@ def _block_apply(op: StencilOperator, mesh, axis: str) -> Callable:
 def stacked_matvec(op: StencilOperator,
                    in_fields: Sequence[str] | None = None,
                    out_fields: Sequence[str] | None = None,
-                   mesh=None, axis: str = "x") -> Callable:
+                   mesh=None, axis: Axis = "x") -> Callable:
     """Matrix-free matvec on stacked vectors: whole (n_fields, n, n)
     without a mesh, this rank's band through `halo_stencil_apply` on one.
     Handles rectangular blocks (e.g. D: velocities -> p)."""
@@ -113,7 +121,7 @@ def stacked_matvec(op: StencilOperator,
 
 
 def _lsc_apply(sop: MultiphaseOperator, GtFG, f_inner: Callable,
-               p_inner: Callable, mesh=None, axis: str = "x") -> Callable:
+               p_inner: Callable, mesh=None, axis: Axis = "x") -> Callable:
     """The LSC formula on stacked (5, n, n) vectors or a rank's band of
     them, shared by the f64, mixed and block-ILU assemblies."""
     vel = sop.F.out_fields
@@ -134,7 +142,7 @@ def _lsc_apply(sop: MultiphaseOperator, GtFG, f_inner: Callable,
     return pc
 
 
-def _ring(mesh, axis: str):
+def _ring(mesh, axis: Axis):
     ring = None if mesh is None else Ring.of(mesh, axis)
     return ring, (None if ring is None else ring.group)
 
@@ -143,7 +151,7 @@ def make_sharded_lsc_pc(sop: MultiphaseOperator,
                         inner_tol: float = 1e-4, inner_iters: int = 40,
                         p_solver: str = "mg", mg_cycles: int = 3,
                         setup_op: MultiphaseOperator | None = None, *,
-                        mesh=None, axis: str = "x") -> Callable:
+                        mesh=None, axis: Axis = "x") -> Callable:
     """LSC preconditioner on stacked (5, n, n) vectors, or on this rank's
     band of them under `mesh`: the form sharded_solve's FGMRES carries.
 
@@ -194,7 +202,7 @@ def make_sharded_lsc_pc_mixed(sop64: MultiphaseOperator,
                               inner_iters: int = 40,
                               mg_cycles: int = 3,
                               setup_op32: MultiphaseOperator | None = None,
-                              *, mesh=None, axis: str = "x") -> Callable:
+                              *, mesh=None, axis: Axis = "x") -> Callable:
     """The HYBRID LSC preconditioner on stacked vectors (or bands): the
     sharded counterpart of `solvers.preconditioners.make_lsc_pc_mixed`.
     The f64 formula glue around f32 inner MG/Krylov solves, each wrapped in
@@ -226,7 +234,7 @@ def make_sharded_lsc_pc_mixed(sop64: MultiphaseOperator,
 
 
 def make_sharded_lsc_pc_ilu(sop: MultiphaseOperator, mesh,
-                            axis: str = "x", dtype=torch.float64,
+                            axis: Axis = "x", dtype=torch.float64,
                             inner_tol: float = 1e-4,
                             inner_iters: int = 40) -> Callable:
     """LSC preconditioner whose inner GMRES solves are preconditioned by
@@ -263,7 +271,7 @@ def make_sharded_lsc_pc_ilu(sop: MultiphaseOperator, mesh,
 
 def sharded_solve(mop: MultiphaseOperator, b_state: dict, mesh,
                   tol: float = 1e-8, maxiter: int = 100,
-                  pc: Callable | None = None, axis: str = "x",
+                  pc: Callable | None = None, axis: Axis = "x",
                   orthog: str = "cgs2", fused: bool = True,
                   pallas: bool = False, x0=None,
                   restart: int | None = None, aug_k: int = 0

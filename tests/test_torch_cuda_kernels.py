@@ -557,11 +557,15 @@ def test_sharded_solve_on_one_nccl_rank_matches_cpu_gloo(cuda_device):
         0.01 * cpu.error_norms["l2"]
 
 
-def test_sharded_solve_on_four_nccl_ranks_matches_one(cuda_device, tmp_path):
+@pytest.mark.parametrize("axis", ["x", ("dcn", "ici")], ids=["1d", "2x2"])
+def test_sharded_solve_on_four_nccl_ranks_matches_one(cuda_device, tmp_path,
+                                                      axis):
     """solve_multiphase_sharded on 4 NCCL ranks, one card each (halo rows
     through NCCL point to point, all-reduces, the coarse MG gathers),
     against the same call on one NCCL rank: converged, counts within 2,
-    L2 within 1%, K3 launched on every rank. Needs 4 cards."""
+    L2 within 1%, K3 launched on every rank. The rows go over a 1-D mesh,
+    or over both axes of a 2x2 `global_mesh_2d` (two hosts of two ranks:
+    LOCAL_WORLD_SIZE=2). Needs 4 cards."""
     import torch.distributed as dist
 
     import torch_rank_fns as rf
@@ -572,7 +576,7 @@ def test_sharded_solve_on_four_nccl_ranks_matches_one(cuda_device, tmp_path):
     kw = dict(n=256, eta_n=100.0, pc="mg", precision="hybrid", tol=1e-10,
               maxiter=60)
     four = rf.run_ranks("driver", 4, tmp_path, timeout=600, device="cuda",
-                        **kw)
+                        axis=axis, local_world_size=2, **kw)
     try:
         one = solve_multiphase_sharded(**kw, device=cuda_device)
     finally:

@@ -180,22 +180,26 @@ def unpreconditioned() -> dict:
                                                      fused=False, **kw))}
 
 
-def pc_solve(case: str, n: int, tols: tuple, maxiter: int) -> dict:
+def pc_solve(case: str, n: int, tols: tuple, maxiter: int,
+             axis="x", mesh=None) -> dict:
     """The sharded LSC PC `case` (mg | cg: make_sharded_lsc_pc, hybrid:
-    make_sharded_lsc_pc_mixed) at eta_n=100, solved to each of `tols`."""
+    make_sharded_lsc_pc_mixed) at eta_n=100, solved to each of `tols`, on
+    `mesh` (default: the 1-D mesh) over `axis`."""
     from mpbp_tpu_torch.parallel import sharding as sh
 
-    mesh = _mesh()
+    mesh = _mesh() if mesh is None else mesh
     op, u, b = _mms(n, 100.0)
     if case == "hybrid":
         op32, _, _ = _mms(n, 100.0, torch.float32)
         M = sh.make_sharded_lsc_pc_mixed(op, op32, inner_tol=1e-4,
-                                         inner_iters=40, mesh=mesh)
+                                         inner_iters=40, mesh=mesh,
+                                         axis=axis)
     else:
         M = sh.make_sharded_lsc_pc(op, inner_tol=1e-4, inner_iters=40,
-                                   p_solver=case, mesh=mesh)
+                                   p_solver=case, mesh=mesh, axis=axis)
     return {tol: _record(op, u, sh.sharded_solve(op, b, mesh, tol=tol,
-                                                 maxiter=maxiter, pc=M))
+                                                 maxiter=maxiter, pc=M,
+                                                 axis=axis))
             for tol in tols}
 
 
@@ -213,13 +217,18 @@ def resume() -> dict:
     return out
 
 
-def driver(**kw) -> dict:
+def driver(local_world_size: int | None = None, **kw) -> dict:
     """`solve_multiphase_sharded` on the ranks' device type, with this
-    rank's K3 launches."""
+    rank's K3 launches; `local_world_size` sets LOCAL_WORLD_SIZE, the
+    ranks a host of a 2-D mesh."""
+    import os
+
     from mpbp_tpu_torch.drivers import solve_multiphase_sharded
     from mpbp_tpu_torch.ops.cuda_stencil import LAUNCHES
     from mpbp_tpu_torch.parallel.distributed import device_type
 
+    if local_world_size is not None:
+        os.environ["LOCAL_WORLD_SIZE"] = str(local_world_size)
     before = LAUNCHES["a_apply_band"]
     rep = solve_multiphase_sharded(device=device_type(), **kw)
     return dict(iters=rep.iters, converged=rep.converged, pc=rep.pc,
@@ -227,6 +236,106 @@ def driver(**kw) -> dict:
                 true_relres=rep.params["true_relres"],
                 k3_launches=LAUNCHES["a_apply_band"] - before)
 
+
+
+def mesh_2d(x16: np.ndarray, v32: np.ndarray, dia: tuple,
+            hybrid: dict, driver_kw: dict) -> dict:
+    """Rows over both axes of a 2x2 `global_mesh_2d` (LOCAL_WORLD_SIZE=2:
+    two hosts of two ranks), axis ("dcn", "ici"), against the 1-D mesh over
+    the same ranks:
+      * "coords", "rows": this rank's mesh coordinates and the grid rows
+        of its band at n=32, for the axis and for ("ici", "dcn") (bands
+        column-major, so the ring's group ranks are not its band order);
+      * "applies": {entry point: (1-D result, 2-D result)}, each gathered
+        whole: the halo apply of A (n=16) on x16, also over ("ici",
+        "dcn"); `stacked_matvec` of D; K3 a band (its plain version here)
+        at n=32 on v32 in f32 and f64 and the band F-apply; the block-
+        Jacobi ILU(0) of F; `sharded_dia_matvec` of `dia` (offsets, data,
+        x); the mg, f64 LSC PC (the banded MG hierarchies) and the
+        block-ILU LSC PC on x16;
+      * "nopc": `sharded_solve` without a PC at n=32 (eta_n 1, tol 1e-8,
+        maxiter 40: the JAX package's 2-D mesh test) on both meshes, and
+        on the 2-D mesh once more with maxiter 80, where it converges;
+      * "hybrid": `pc_solve(**hybrid)` on the 2-D axis;
+      * "driver": `solve_multiphase_sharded(**driver_kw)` on the 2-D
+        axis."""
+    import os
+
+    from mpbp_tpu_torch.models.fused import make_f_apply_stacked
+    from mpbp_tpu_torch.models.multiphase import (ALL_FIELDS,
+                                                  make_multiphase_operator)
+    from mpbp_tpu_torch.ops.dia import DIAMatrix
+    from mpbp_tpu_torch.parallel import sharding as sh
+    from mpbp_tpu_torch.parallel.block_ilu import BlockJacobiILU
+    from mpbp_tpu_torch.parallel.distributed import global_mesh_2d
+    from mpbp_tpu_torch.parallel.halo import Ring, halo_stencil_apply
+    from mpbp_tpu_torch.parallel.pallas_sharded import (
+        make_fused_apply_pallas_sharded, pallas_sharded_supported)
+    from mpbp_tpu_torch.parallel.sharded_dia import (shard_dia,
+                                                     sharded_dia_matvec)
+
+    os.environ["LOCAL_WORLD_SIZE"] = "2"
+    axis = ("dcn", "ici")
+    meshes = ((_mesh(), "x"), (global_mesh_2d(), axis))
+    mesh2 = meshes[1][0]
+    rows = torch.arange(32, dtype=torch.float64)[:, None].expand(32, 32)
+    out = {"coords": tuple(mesh2.get_coordinate()),
+           "rows": {ax: _np(Ring.of(mesh2, ax).band(rows)[:, 0])
+                    for ax in (axis, ("ici", "dcn"))}}
+
+    op, _, _ = _mms(16, 100.0)
+    x = torch.as_tensor(x16)
+    offsets, data, xd = dia
+    A = DIAMatrix.from_numpy((len(xd), len(xd)), offsets, data, device="cpu")
+
+    def applies(mesh, ax):
+        ring = Ring.of(mesh, ax)
+        xb = ring.band(x)
+        got = {}
+        y = halo_stencil_apply(op.A, mesh, ax)(dict(zip(ALL_FIELDS, xb)))
+        got["halo"] = ring.gather(torch.stack([y[f] for f in ALL_FIELDS]))
+        got["stacked"] = ring.gather(sh.stacked_matvec(
+            op.D, ("un", "vn", "us", "vs"), ("p",), mesh=mesh,
+            axis=ax)(xb[:4]))
+        for dtype in (torch.float32, torch.float64):
+            op3 = make_multiphase_operator(32, c=1.0, d=-1.0, xi=1.0,
+                                           eta_n=100.0, eta_s=1.0,
+                                           dtype=dtype, device="cpu")
+            assert pallas_sharded_supported(op3, mesh, ax)
+            v = ring.band(torch.as_tensor(v32, dtype=dtype))
+            got[("k3", dtype)] = ring.gather(
+                make_fused_apply_pallas_sharded(sh.shard_multiphase(
+                    op3, mesh, ax), mesh, ax)(v))
+            got[("f", dtype)] = ring.gather(make_f_apply_stacked(
+                op3, mesh, ax)(v[:4].contiguous()))
+        got["block_ilu"] = ring.gather(BlockJacobiILU.of(op.F, mesh, ax)(
+            xb[:4].contiguous()))
+        got["dia"] = ring.gather(sharded_dia_matvec(
+            shard_dia(A, mesh, ax), mesh, ax)(ring.band(
+                torch.as_tensor(xd), dim=0)), dim=0)
+        got["lsc_mg"] = ring.gather(sh.make_sharded_lsc_pc(
+            op, mesh=mesh, axis=ax)(xb))
+        got["lsc_ilu"] = ring.gather(sh.make_sharded_lsc_pc_ilu(
+            op, mesh, ax)(xb))
+        return {k: _np(v) for k, v in got.items()}
+
+    one, two = (applies(m, ax) for m, ax in meshes)
+    out["applies"] = {k: (one[k], two[k]) for k in one}
+    ring_t = Ring.of(mesh2, ("ici", "dcn"))
+    y = halo_stencil_apply(op.A, mesh2, ("ici", "dcn"))(
+        dict(zip(ALL_FIELDS, ring_t.band(x))))
+    out["applies"]["halo ici-major"] = (one["halo"], _np(ring_t.gather(
+        torch.stack([y[f] for f in ALL_FIELDS]))))
+
+    op1, u1, b1 = _mms(32, 1.0)
+    out["nopc"] = {ax if isinstance(ax, str) else "2d": _record(
+        op1, u1, sh.sharded_solve(op1, b1, mesh, tol=1e-8, maxiter=40,
+                                  axis=ax)) for mesh, ax in meshes}
+    out["nopc"]["2d converged"] = _record(op1, u1, sh.sharded_solve(
+        op1, b1, mesh2, tol=1e-8, maxiter=80, axis=axis))
+    out["hybrid"] = pc_solve(**hybrid, axis=axis, mesh=mesh2)
+    out["driver"] = driver(axis=axis, **driver_kw)
+    return out
 
 
 def several(calls: list) -> list:
