@@ -24,7 +24,12 @@ yardstick only, the port never calls it.
                block operator (D, G, XI, L) against its manufactured data
                (models/mms.py) at n=256 and 512: the order, held > 1.85.
   5. slice   - the 512^2, eta_n=100 lsc_mg_full hybrid solve, cold then
-               warm, with the kernel launch counts of the warm run.
+               warm, with the kernel launch counts of the warm run; then
+               the same solve with make_lsc_pc_mixed(refine_inners=False)
+               (no f64 refinement pass around the f32 inner solves): held
+               to the f32 floor the JAX package records (not converged,
+               true relres > 1e-7), its count, relres and L2 printed
+               beside the refined count and --mode f64's.
   6. layers  - one more solve with synchronized timers around the outer
                matvec, the F and pressure inner solves and the PC apply.
   7. profile - two outer iterations of the warm solve under torch.profiler:
@@ -214,6 +219,13 @@ SLICE = dict(n=512, c=1, d=-1, xi=1, eta_n=100, eta_s=1, pc="lsc_mg_full",
              precision="hybrid", tol=1e-10, maxiter=40, inner_tol=1e-4,
              inner_iters=40)
 L2_DISCRETIZATION = 2.3039e-5     # the MMS discretization error at 512^2
+# the slice's PC without the f64 refinement pass around each f32 inner
+# solve (make_lsc_pc_mixed(refine_inners=False)): the f32 inner noise
+# floors the outer FGMRES far above tol (the JAX package's docstring:
+# ~2e-4 at n=512), so it is held above SLICE_F32_FLOOR; its count is
+# printed beside the refined solve's and that of the f64 PC, which has no
+# such pass (--mode f64 at 512^2: 27 iterations on the H100)
+SLICE_F32_FLOOR, SLICE_F64_MODE_ITERS = 1e-7, 27
 # mms: the order of each block operator (D, G, XI, L) between n/2 and n
 MMS_ORDER_N = 512
 # path (a): the reference-parity ILU solve with Neumann triangular solves;
@@ -611,20 +623,75 @@ def phase_slice(dev) -> dict:
         for k in ("f_apply", "a_apply"):
             check(launches[k] > 0, f"kernel {k} was not launched by the solve")
         runs[label] = dict(seconds=secs, launches=launches, iters=rep.iters)
+    runs["no_refine"] = _slice_no_refine(dev, runs["warm"]["iters"])
     return runs
 
 
-def phase_layers(dev) -> None:
-    """Wall time per layer of one hybrid solve, each layer's calls wrapped
-    in synchronized host timers (the synchronizations cost a little)."""
+def _slice_pieces(dev) -> tuple:
+    """What the slice's hybrid solve is built from: the f64 operator, the
+    MMS rhs and solution vectors and the f32 lsc_mg_full inner solvers."""
     p = {k: SLICE[k] for k in ("c", "d", "xi", "eta_n", "eta_s")}
     op64 = make_multiphase_operator(SLICE["n"], **p, dtype=torch.float64,
                                     device=dev)
     op32 = make_multiphase_operator(SLICE["n"], **p, dtype=torch.float32,
                                     device=dev)
-    _, b = mms.fill_sol_and_rhs(op64.grid, mms.variable_thn_problem(
+    u, b = mms.fill_sol_and_rhs(op64.grid, mms.variable_thn_problem(
         *(float(v) for v in p.values())))
-    b_vec = pack_fields(op64, b)
+    f32, p32 = lsc_inners(op32, "lsc_mg_full", inner_tol=SLICE["inner_tol"],
+                          inner_iters=SLICE["inner_iters"],
+                          dtype=torch.float32)
+    return op64, pack_fields(op64, b), pack_fields(op64, u), f32, p32
+
+
+def _slice_no_refine(dev, refined_iters: int) -> dict:
+    """The slice's solve with make_lsc_pc_mixed(refine_inners=False): the
+    same operators, inner solvers, FGMRES and tolerance, built here
+    because the drivers do not pass refine_inners on (as in the JAX
+    package, whose pc_kwargs go to lsc_inners). Without the f64 pass the
+    f32 inner noise floors the outer FGMRES (both packages on the CPU: a
+    true relres of 1.7e-6 / 9.2e-6 after 25 iterations at n=128,
+    tests/test_torch_mixed.py), so the solve is held to that
+    floor: not converged, a true relres above SLICE_F32_FLOOR, finite
+    values of the right shape and K1/K2 launched; its count, relres, L2
+    and time are printed beside the refined solve's count and --mode
+    f64's."""
+    n = SLICE["n"]
+    op64, b_vec, u_vec, f32, p32 = _slice_pieces(dev)
+    M = make_lsc_pc_mixed(op64, f32, p32, refine_inners=False)
+    mv = a_matvec(op64)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = krylov.fgmres(mv, b_vec, tol=SLICE["tol"], maxiter=SLICE["maxiter"],
+                        M=M)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: cuda_stencil.LAUNCHES[k] for k in ("f_apply", "a_apply")}
+    _, rn = krylov.residual_norm(mv, b_vec, res.x)
+    true_res = float(rn / torch.linalg.norm(b_vec))
+    l2 = norms_report(res.x, u_vec, op64.grid.dx, op64.grid.dy)["l2"]
+    say("slice", run="warm, refine_inners=False", iters=res.iters,
+        converged=res.converged, refined_iters=refined_iters,
+        f64_mode_iters=SLICE_F64_MODE_ITERS, relres=f"{res.relres:.3e}",
+        true_relres=f"{true_res:.3e}", l2=f"{l2:.6e}",
+        l2_over_discretization=f"{l2 / L2_DISCRETIZATION:.1f}",
+        seconds=f"{secs:.3f}", launches=json.dumps(launches))
+    check(not res.converged and true_res > SLICE_F32_FLOOR,
+          f"refine_inners=False: true relres {true_res:.3e}, below the f32 "
+          f"floor {SLICE_F32_FLOOR} the JAX package records")
+    check(tuple(res.x.shape) == (5 * n * n,)
+          and bool(torch.isfinite(res.x).all()),
+          "refine_inners=False: wrong shape or non-finite values")
+    check(launches["f_apply"] > 0 and launches["a_apply"] > 0,
+          f"refine_inners=False: K1 or K2 not launched ({launches})")
+    return dict(iters=res.iters, converged=res.converged, seconds=secs,
+                launches=launches, true_relres=true_res, l2=l2)
+
+
+def phase_layers(dev) -> None:
+    """Wall time per layer of one hybrid solve, each layer's calls wrapped
+    in synchronized host timers (the synchronizations cost a little)."""
+    op64, b_vec, _, f32, p32 = _slice_pieces(dev)
     spent = {"outer_matvec_K2": 0.0, "f_inner": 0.0, "p_inner": 0.0,
              "pc_apply": 0.0}
     calls = dict.fromkeys(spent, 0)
@@ -640,9 +707,6 @@ def phase_layers(dev) -> None:
             return out
         return wrapped
 
-    f32, p32 = lsc_inners(op32, "lsc_mg_full", inner_tol=SLICE["inner_tol"],
-                          inner_iters=SLICE["inner_iters"],
-                          dtype=torch.float32)
     M = timed("pc_apply", make_lsc_pc_mixed(op64, timed("f_inner", f32),
                                             timed("p_inner", p32)))
     mv = timed("outer_matvec_K2", a_matvec(op64))

@@ -211,7 +211,8 @@ def scaled32_apply(inner32: Callable, v64: torch.Tensor,
 
 
 def make_lsc_pc_mixed(op64: MultiphaseOperator, f_inner32: Callable,
-                      p_inner32: Callable) -> Callable:
+                      p_inner32: Callable,
+                      refine_inners: bool = True) -> Callable:
     """LSC apply with f64 glue and f32 inner solves.
 
     An all-f32 LSC apply has output error ~ eps_f32 * kappa(A) on rough
@@ -220,12 +221,17 @@ def make_lsc_pc_mixed(op64: MultiphaseOperator, f_inner32: Callable,
     cancellation-heavy lines) in f64 while the inner solves run in f32
     restores per-application quality to the inner-solve tolerance.
 
-    Each f32 inner solve is wrapped in one f64 residual refinement pass
-    (x += solve32(r - Op64 x)); the F residual goes through kernel K1 in
-    f64. Without it the f32 inner noise floors the outer FGMRES. Cost: 2x
-    the inner solves plus one f64 block matvec each. (The JAX package's
-    `refine_inners=False` variant is not ported: nothing calls it.)"""
+    refine_inners=True (the default) wraps each f32 inner solve in one f64
+    residual refinement pass (x += solve32(r - Op64 x)); the F residual
+    goes through kernel K1 in f64. Without it the f32 inner noise floors
+    the outer FGMRES. Cost: 2x the inner solves plus one f64 block matvec
+    each. refine_inners=False runs each inner solve once, scaled to f32
+    and back, with no refinement pass."""
     GtG64, GtFG = lsc_products(op64)
+    if not refine_inners:
+        return _lsc_apply(op64, GtFG,
+                          lambda vu64: scaled32_apply(f_inner32, vu64),
+                          lambda rp64: scaled32_apply(p_inner32, rp64))
     n = op64.grid.n
     fmv64 = make_f_apply(op64)
 

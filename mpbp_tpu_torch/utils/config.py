@@ -48,14 +48,23 @@ class MeshConfig:
     axis: str = "x"
 
 
-def add_dataclass_args(parser: argparse.ArgumentParser, dc):
+def add_dataclass_args(parser: argparse.ArgumentParser, dc,
+                       prefix: str = ""):
+    """One option `--{prefix}{name-with-dashes}` per field of `dc`, typed
+    and defaulted by the field's default. The prefix is kept as given, and
+    `dataclass_from_args` reads attribute `{prefix}{name}` back, so a
+    prefix that should read back spells its separators as underscores
+    ("pc_" registers --pc_inner-tol); a dash in it does not read back
+    (AttributeError), as in the JAX package."""
     for f in dataclasses.fields(dc):
-        parser.add_argument(f"--{f.name.replace('_', '-')}",
+        parser.add_argument(f"--{prefix}{f.name.replace('_', '-')}",
                             type=type(f.default), default=f.default)
 
 
-def dataclass_from_args(cls, args: argparse.Namespace):
-    return cls(**{f.name: getattr(args, f.name)
+def dataclass_from_args(cls, args: argparse.Namespace, prefix: str = ""):
+    """`cls` from the options `add_dataclass_args(..., prefix)` added:
+    attribute `{prefix}{name}` of `args` for each field."""
+    return cls(**{f.name: getattr(args, f"{prefix}{f.name}")
                   for f in dataclasses.fields(cls)})
 
 

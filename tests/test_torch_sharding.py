@@ -281,6 +281,195 @@ def test_band_count_invariance(four, two, one):
     assert one[0]["num_processes"] == 1 and one[0]["backend"] == "gloo"
 
 
+# S1 (the sharded f64 counts against JAX's): the mg-preconditioned solve on
+# one rank against JAX's on one device, on the same rhs. At n=32 the two
+# residual histories agree to 2.3e-10 of each entry over entries 0-6 and
+# part from entry 7 on (1.4e-8, then 1.4e-6, 1.1e-4), as rounding grows
+# through the inner GMRES solves; the one-rank PC applies agree to 9.0e-15
+# of max|y| and the MG cycles to 4.4e-16 at n=32. Under 1e-14 relative rhs
+# perturbations the port's count moves 18-22 at tol 1e-8 (JAX: 22 on every
+# seed), so the count is held to JAX's within 4 and the first 7 history
+# entries to 1e-8 of JAX's.
+S1 = dict(n=32, tol=1e-8, maxiter=60)
+S1_HISTORY_ENTRIES, S1_HISTORY_RTOL, S1_COUNT_SLACK = 7, 1e-8, 4
+# the study at n=256 and 512 (tol 1e-10, maxiter 80; slow): seed 0 is the
+# rhs as assembled, seeds 1-5 multiply it by 1 + 1e-14 N(0, 1)
+S1_STUDY = dict(tol=1e-10, maxiter=80)
+S1_STUDY_SEEDS, S1_STUDY_HISTORY = range(6), (5, 1e-7)
+# the PC applied to one vector, one rank against JAX, relative to max|y|:
+# at n=32, 9.0e-15 (held to 1e-13); the pressure (3 cycles) and velocity
+# (1 cycle) MG cycles 1.6e-16 and 4.4e-16 (held to 1e-14); at n=256 and
+# 512 the PC within 1e-10 (the inner GMRES solves amplify rounding as n
+# grows)
+S1_APPLY_TOL = {"pc": 1e-13, "pressure_mg": 1e-14, "velocity_mg": 1e-14}
+S1_STUDY_APPLY_TOL = 1e-10
+# JAX's 1024^2 f64 row (SHARDED_r05.json, 8 virtual CPU devices)
+S1_JAX_1024 = 45, 5.764696e-6
+
+
+def _s1_rhs(b: dict, seed: int) -> dict:
+    """The rhs fields as numpy, seed > 0: each times 1 + 1e-14 N(0, 1)."""
+    out = {f: np.asarray(b[f], dtype=np.float64) for f in ALL_FIELDS}
+    if seed:
+        rng = np.random.default_rng(seed)
+        out = {f: v * (1 + 1e-14 * rng.normal(size=v.shape))
+               for f, v in out.items()}
+    return out
+
+
+def _s1_port(n: int, tol: float, maxiter: int, seed: int = 0):
+    """(result, L2) of the port's sharded_solve with the f64 mg PC on the
+    open process group, eta_n=100."""
+    from mpbp_tpu_torch.parallel import sharding as sh
+
+    op, u, b = rf._mms(n, 100.0)
+    mesh = sh.make_mesh()
+    M = sh.make_sharded_lsc_pc(op, inner_tol=1e-4, inner_iters=40,
+                               p_solver="mg", mesh=mesh)
+    b = {f: torch.as_tensor(v) for f, v in _s1_rhs(b, seed).items()}
+    res = sh.sharded_solve(op, b, mesh, tol=tol, maxiter=maxiter, pc=M)
+    return res, rf._record(op, u, res)["l2"]
+
+
+def _s1_jax(n: int, tol: float, maxiter: int, seed: int = 0):
+    """(result, L2) of JAX's sharded_solve with the f64 mg PC on one
+    device, eta_n=100."""
+    op, u, b = _jax_mms(n, 100.0)
+    M = jsh.make_sharded_lsc_pc(op, inner_tol=1e-4, inner_iters=40,
+                                p_solver="mg", setup_op=op)
+    b = {f: jnp.asarray(v) for f, v in _s1_rhs(b, seed).items()}
+    res = jsh.sharded_solve(op, b, Mesh(np.array(jax.devices()[:1]),
+                                        axis_names=("x",)),
+                            tol=tol, maxiter=maxiter, pc=M)
+    return res, _jax_l2(op, u, res.x)
+
+
+def _s1_apply_diff(part: str, n: int) -> float:
+    """max|port - JAX| / max|JAX| of one apply on one rank to the same
+    seeded vector: the f64 mg LSC PC ('pc'), or the pressure (3 cycles)
+    or velocity (1 cycle) MG solver of its inner solves."""
+    from mpbp_tpu.solvers.multigrid import MGPressureSolver as JaxPMG
+    from mpbp_tpu.solvers.multigrid import MGVelocitySolver as JaxVMG
+    from mpbp_tpu_torch.parallel import sharding as sh
+    from mpbp_tpu_torch.parallel.halo import Ring
+    from mpbp_tpu_torch.solvers.multigrid import (MGPressureSolver,
+                                                  MGVelocitySolver)
+
+    op, _, _ = rf._mms(n, 100.0)
+    jop, _, _ = _jax_mms(n, 100.0)
+    mesh = sh.make_mesh()
+    v = np.random.default_rng(RNG_X16).normal(size=(5, n, n))
+    if part == "pc":
+        M = sh.make_sharded_lsc_pc(op, inner_tol=1e-4, inner_iters=40,
+                                   p_solver="mg", mesh=mesh)
+        jM = jsh.make_sharded_lsc_pc(jop, inner_tol=1e-4, inner_iters=40,
+                                     p_solver="mg", setup_op=jop)
+    else:
+        ring, cycles = Ring.of(mesh, "x"), 3 if part == "pressure_mg" else 1
+        mine, ref = ((MGPressureSolver, JaxPMG) if part == "pressure_mg"
+                     else (MGVelocitySolver, JaxVMG))
+        M, jM = mine.of(op, cycles=cycles, ring=ring), ref.of(jop,
+                                                              cycles=cycles)
+        v = v[4] if part == "pressure_mg" else v[:4]
+    want = np.asarray(jM(jnp.asarray(v)))
+    got = M(torch.as_tensor(v)).numpy()
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("part", sorted(S1_APPLY_TOL))
+def test_one_rank_mg_pc_apply_matches_jax(one, part):
+    """S1's bisection at n=32: the one-rank f64 mg LSC PC and the MG
+    cycles of its inner solves against JAX's on one vector, within
+    S1_APPLY_TOL of max|y|."""
+    diff = _s1_apply_diff(part, 32)
+    print(f"{part}: {diff:.2e}")
+    assert diff <= S1_APPLY_TOL[part]
+
+
+def test_one_rank_mg_solve_follows_jax_history(one):
+    """S1 at n=32: the port's sharded_solve with the f64 mg PC on one gloo
+    rank and JAX's on one device, on the same rhs: converged, count within
+    S1_COUNT_SLACK, the first S1_HISTORY_ENTRIES residuals within
+    S1_HISTORY_RTOL of JAX's, L2 within 0.1%."""
+    got, l2 = _s1_port(**S1)
+    want, jl2 = _s1_jax(**S1)
+    print(f"n={S1['n']}: port {got.iters}, JAX {int(want.iters)}")
+    assert got.converged and bool(want.converged)
+    assert abs(got.iters - int(want.iters)) <= S1_COUNT_SLACK
+    k = S1_HISTORY_ENTRIES
+    np.testing.assert_allclose(np.asarray(got.res_history[:k]),
+                               np.asarray(want.res_history)[:k],
+                               rtol=S1_HISTORY_RTOL, atol=0)
+    assert l2 == pytest.approx(jl2, rel=1e-3)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n", [256, 512])
+def test_one_rank_mg_count_spread_covers_jax(one, n):
+    """The S1 study (tol 1e-10): each package's count on S1_STUDY_SEEDS.
+    The port's counts cover JAX's on the assembled rhs, the seed-0
+    histories agree over their first S1_STUDY_HISTORY[0] entries within
+    S1_STUDY_HISTORY[1], the PC applies within S1_STUDY_APPLY_TOL, every
+    solve converges and every L2 is within 0.1% of JAX's (10-45 minutes
+    on 4 threads)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        port = [_s1_port(n, **S1_STUDY, seed=s) for s in S1_STUDY_SEEDS]
+    finally:
+        torch.set_num_threads(threads)
+    ref = [_s1_jax(n, **S1_STUDY, seed=s) for s in S1_STUDY_SEEDS]
+    counts = [r.iters for r, _ in port]
+    jax_counts = [int(r.iters) for r, _ in ref]
+    h, jh = (np.asarray(r[0][0].res_history[:10]) for r in (port, ref))
+    apply_diff = _s1_apply_diff("pc", n)
+    print(f"n={n}: port {counts}, JAX {jax_counts}; PC apply {apply_diff:.2e}"
+          "; history, relative difference: "
+          + " ".join(f"{d:.1e}" for d in np.abs(h - jh) / np.abs(jh)))
+    assert apply_diff <= S1_STUDY_APPLY_TOL
+    assert all(r.converged for r, _ in port)
+    assert all(bool(r.converged) for r, _ in ref)
+    assert min(counts) <= jax_counts[0] <= max(counts)
+    k, rtol = S1_STUDY_HISTORY
+    np.testing.assert_allclose(np.asarray(port[0][0].res_history[:k]),
+                               np.asarray(ref[0][0].res_history)[:k],
+                               rtol=rtol, atol=0)
+    jl2 = ref[0][1]
+    assert all(abs(l2 - jl2) <= 1e-3 * jl2 for _, l2 in port + ref)
+
+
+@pytest.mark.slow
+def test_one_rank_mg_solve_at_1024_reaches_jax_l2(one):
+    """The port's 1024^2 f64 mg solve (tol 1e-10, maxiter 80) on one gloo
+    rank, plain PyTorch, beside JAX's recorded 45 iterations: tol 1e-10 is
+    at this system's f64 floor there, so rounding alone moves the count
+    (the CLI's `solve --sharded --n 1024 --eta-n 100 --tol 1e-10
+    --maxiter 80 --device cpu` took 44 iterations on 4 threads; this
+    solve stopped at maxiter 80 with a true relres of 1.22e-10). Held:
+    a true relres within 2x tol and the L2 within 0.1% of JAX's; the count
+    is printed (about 55 minutes and 11 GB of host memory)."""
+    from mpbp_tpu_torch.parallel import sharding as sh
+    from mpbp_tpu_torch.solvers import gmres as krylov
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        got, l2 = _s1_port(1024, **S1_STUDY)
+        op, _, b = rf._mms(1024, 100.0)
+        b = sh.stack_state(b)
+        mv = sh.stacked_matvec(op.A)
+        _, rn = krylov.residual_norm(mv, b, got.x)
+        true_res = float(rn / torch.linalg.norm(b))
+    finally:
+        torch.set_num_threads(threads)
+    jax_iters, jax_l2 = S1_JAX_1024
+    print(f"n=1024: port {got.iters} (converged {got.converged}, true "
+          f"relres {true_res:.3e}), JAX {jax_iters}; L2 {l2:.6e}, JAX "
+          f"{jax_l2}")
+    assert true_res <= 2 * S1_STUDY["tol"]
+    assert l2 == pytest.approx(jax_l2, rel=1e-3)
+
+
 def test_driver_refuses_what_it_cannot_run(one):
     """n_devices other than the number of ranks, hybrid with block_ilu0,
     and an unknown pc or precision: ValueError (as JAX's driver for the

@@ -4,6 +4,8 @@ and lsc_mg_krylov kinds, and the ILU and block kinds (lsc_ilut with level
 and Neumann triangular solves, lsc_ilu0, lsc_mg, block_diag, block_tri);
 the CLI's solve, apply, eigs and export, and the config's JSON."""
 
+import argparse
+import dataclasses
 import json
 import os
 
@@ -304,6 +306,77 @@ def test_config_json_roundtrip():
     assert cfg.from_json(cfg.to_json(p, s, m)) == (p, s, m)
     jp, jm = jax_cfg.from_json(cfg.to_json(p, m))
     assert (jp.n, jp.eta_n, jm.n_devices, jm.axis) == (32, 7.0, 4, "x")
+
+
+# add_dataclass_args / dataclass_from_args with a prefix: the options are
+# --{prefix}{name-with-dashes} and read back from attribute
+# {prefix}{name}, so a prefix that reads back spells its separators as
+# underscores (as in the JAX package)
+PREFIXES = ("", "pc_", "mesh_a_")
+PREFIX_ARGV = ["--{}n", "32", "--{}eta-n", "7.5", "--{}problem", "constant",
+               "--{}tol", "3e-9", "--{}inner-iters", "12", "--{}pc",
+               "lsc_mg_full", "--{}n-devices", "4", "--{}axis", "y"]
+CONFIGS = ("ProblemConfig", "MeshConfig", "SolverConfig")
+
+
+def _prefixed_parse(config, prefix: str) -> tuple:
+    """The option strings `config.add_dataclass_args` registers for each
+    of CONFIGS (whose fields do not overlap) on one parser under
+    `prefix`, and the dataclasses it reads back from PREFIX_ARGV."""
+    parser = argparse.ArgumentParser()
+    opts = []
+    for name in CONFIGS:
+        known = {o for a in parser._actions for o in a.option_strings}
+        config.add_dataclass_args(parser, getattr(config, name),
+                                  prefix=prefix)
+        opts.append(sorted({o for a in parser._actions
+                            for o in a.option_strings} - known))
+    args = parser.parse_args([a.format(prefix) for a in PREFIX_ARGV])
+    return opts, [config.dataclass_from_args(getattr(config, name), args,
+                                             prefix=prefix)
+                  for name in CONFIGS]
+
+
+@pytest.mark.parametrize("prefix", PREFIXES)
+def test_config_prefix_matches_jax(prefix):
+    """With and without a prefix, both packages register the same option
+    strings for ProblemConfig and MeshConfig and read the same argv into
+    equal dataclasses; SolverConfig likewise on the fields both have (the
+    JAX package's has fused_pallas, the port's device)."""
+    from mpbp_tpu.utils import config as jax_cfg
+
+    opts, got = _prefixed_parse(cfg, prefix)
+    jopts, want = _prefixed_parse(jax_cfg, prefix)
+    assert opts[:2] == jopts[:2]
+    assert all(o.startswith(f"--{prefix}") for o in opts[0])
+    shared = set(opts[2]) & set(jopts[2])
+    assert set(opts[2]) - shared == {f"--{prefix}device"}
+    assert set(jopts[2]) - shared == {f"--{prefix}fused-pallas"}
+    for g, w in zip(got[:2], want[:2]):
+        assert dataclasses.asdict(g) == dataclasses.asdict(w)
+    assert (got[0].n, got[0].eta_n, got[0].problem) == (32, 7.5, "constant")
+    assert (got[1].n_devices, got[1].axis) == (4, "y")
+    gs, ws = dataclasses.asdict(got[2]), dataclasses.asdict(want[2])
+    assert {k: gs[k] for k in ws if k in gs} == \
+        {k: ws[k] for k in ws if k in gs}
+    assert (got[2].tol, got[2].inner_iters, got[2].pc) == \
+        (3e-9, 12, "lsc_mg_full")
+
+
+def test_config_prefix_with_a_dash_does_not_read_back():
+    """A prefix with a dash registers its options (--pc-n) but argparse
+    stores them under underscores, so dataclass_from_args raises
+    AttributeError in both packages."""
+    from mpbp_tpu.utils import config as jax_cfg
+
+    for config in (cfg, jax_cfg):
+        p = argparse.ArgumentParser()
+        config.add_dataclass_args(p, config.ProblemConfig, prefix="pc-")
+        args = p.parse_args(["--pc-n", "8"])
+        assert args.pc_n == 8
+        with pytest.raises(AttributeError):
+            config.dataclass_from_args(config.ProblemConfig, args,
+                                       prefix="pc-")
 
 
 def test_cli_eigs_prints_converged_values(capsys):
