@@ -24,25 +24,43 @@ yardstick only, the port never calls it.
                block operator (D, G, XI, L) against its manufactured data
                (models/mms.py) at n=256 and 512: the order, held > 1.85.
   5. slice   - the 512^2, eta_n=100 lsc_mg_full hybrid solve, cold then
-               warm, with the kernel launch counts of the warm run; then
+               warm (its PC a CUDA graph, captured in the cold run), with
+               the kernel launch counts of the warm run; held to 18 +- 1
+               iterations and L2 within 0.1% of 2.303903e-5 (the eager
+               solve's, before the graph); then
                the same solve with make_lsc_pc_mixed(refine_inners=False)
                (no f64 refinement pass around the f32 inner solves): held
                to the f32 floor the JAX package records (not converged,
                true relres > 1e-7), its count, relres and L2 printed
                beside the refined count and --mode f64's.
-  6. layers  - one more solve with synchronized timers around the outer
+  6. graphs  - at n=512 and 1024, the slice's hybrid PC apply captured
+               as a CUDA graph (`solvers/graphs.GraphedApply`): the replay
+               held bit-equal to the eager apply, three replays under
+               torch.cuda.set_sync_debug_mode("error"); each apply eager
+               and replayed (in turns: eager, graph, graph, eager) with
+               its host us, wall us and K1 launches, and the first of each
+               under torch.profiler: device busy us, idle share and device
+               launches (for a replay, the graph's nodes);
+               then the warm solve both ways, in the same turns: seconds,
+               K1/K2 launches and the census of the F inner GMRES's
+               converged counts, with the share of its fixed budget that
+               ran masked past convergence. The four solves are held to
+               one count, one x and one census. The slice (5) and
+               at_scale (22) run with the graphed PC, as every CUDA solve
+               of `drivers` and `bench_solve` does.
+  7. layers  - one more solve with synchronized timers around the outer
                matvec, the F and pressure inner solves and the PC apply.
-  7. profile - two outer iterations of the warm solve under torch.profiler:
+  8. profile - two outer iterations of the warm solve under torch.profiler:
                device busy time and idle share, K1/K2 device totals, the
                busiest kernels.
-  8. sparse_kernels - K5/K6 (dia_spmv) at benchmarks/kernels_tpu.py's
+  9. sparse_kernels - K5/K6 (dia_spmv) at benchmarks/kernels_tpu.py's
                sizes; K7 (ell_spmv on compressed rows, plain, with the
                Jacobi epilogue, and a solve's 24 sweeps from one host
                call) on GtG's n=256 ILUT U factor; K8 (ell_spmm on
                compressed rows) on BandedELL of GtG at n=256 and 1024,
                k=16, with torch.sparse.mm beside it; then the BandedELL
                SpMM API run as a path.
-  9. ilu_slice - path (a): the n=64 lsc_ilut solve with Neumann triangular
+ 10. ilu_slice - path (a): the n=64 lsc_ilut solve with Neumann triangular
                solves (every sweep one K7 launch), cold then warm; then
                ilu_layers: K7 against its plain version on the four
                triangles that path sweeps (one product, one sweep, and the
@@ -50,13 +68,13 @@ yardstick only, the port never calls it.
                layer split with synchronized timers; then launch_path: the
                host's cost of a launch, and of a Neumann solve's sweeps in
                one host call against one call per sweep.
- 10. ilu_level - the CLI default: n=16 lsc_ilut with the exact level apply
+ 11. ilu_level - the CLI default: n=16 lsc_ilut with the exact level apply
                (plain PyTorch), with the launches of one outer iteration.
- 11. dia_lsc - path (b): LSC built from DIA matrices alone at n=128, FGMRES
+ 12. dia_lsc - path (b): LSC built from DIA matrices alone at n=128, FGMRES
                on A.to_dia(); every matvec is K5/K6, which is then held
                against its plain version on each of the path's six DIA
                matrices.
- 12. halo_kernels - K3 (a_apply_band) and K4 (a_apply_staged) against
+ 13. halo_kernels - K3 (a_apply_band) and K4 (a_apply_staged) against
                their plain versions, f32 and f64: K3 on a real band (64
                rows of a random n=512 grid with h=8 neighbour rows, not
                periodic within the band) and on the row-extended state
@@ -66,10 +84,10 @@ yardstick only, the port never calls it.
                tile. Each also against K2 on the same state: max
                difference and whether bit-equal. Times and GB/s tagged L2
                or HBM.
- 13. bench  - the A-apply race of `python -m mpbp_tpu_torch.bench` (K2, K3
+ 14. bench  - the A-apply race of `python -m mpbp_tpu_torch.bench` (K2, K3
                extend, K4 at three tiles, plain PyTorch; CUDA-graph and
                eager marginal times), its JSON line and the winner.
- 14. ir_slice - `bench_solve --mode ir` at n=512 (pc lsc_mg_full, tol 1e-8,
+ 15. ir_slice - `bench_solve --mode ir` at n=512 (pc lsc_mg_full, tol 1e-8,
                inner-tol 1e-6, inner-maxiter 40, max-outer 5, pc-inner-tol
                1e-4), cold and warm with --halo inkernel, then warm with
                pipelined and extend on the same setup, with the K1-K4
@@ -77,26 +95,26 @@ yardstick only, the port never calls it.
                at n=64, once more with K1's function computed by K2 (in
                f32 K1's own rounding since K2 shares its design), and the
                true-residual monitor at n=16.
- 15. krylov_slice - lsc_mg_krylov (K1 the matvec of its Jacobi-GMRES on F,
+ 16. krylov_slice - lsc_mg_krylov (K1 the matvec of its Jacobi-GMRES on F,
                K2 the outer matvec) in full f64: at n=32, where its count
                is held to the JAX package's; at n=128, the largest grid
                where the JAX package's settings converge in their budget,
                cold then warm; at n=64 with K1 and K2 replaced by their
                plain versions; then hybrid at n=64.
- 16. spectrum - (i) eigs on the 512^2 f64 A (K2 every Arnoldi step) against
+ 17. spectrum - (i) eigs on the 512^2 f64 A (K2 every Arnoldi step) against
                the same call through the plain a_matvec(fused=False); (ii)
                spectrum_report at n=64 with lsc_mg_full
                (benchmarks/spectrum_prod.py's settings).
- 17. exact_schur - the n=8 exact_schur solve and the dense spectrum of its
+ 18. exact_schur - the n=8 exact_schur solve and the dense spectrum of its
                A*M^-1 (spectrum_report(exact=True)).
- 18. stokes - BASELINE configs[0] (64^2, block diagonal, ILUT F inner) and
+ 19. stokes - BASELINE configs[0] (64^2, block diagonal, ILUT F inner) and
                configs[1] (32^2 variable viscosity, block triangular), each
                with the 24-sweep Neumann apply (every sweep set one K7 call).
- 19. checkpoint - the 512^2 operator saved and loaded (K2's apply of both
+ 20. checkpoint - the 512^2 operator saved and loaded (K2's apply of both
                bit-equal); the n=128 lsc_mg_full hybrid solve stopped after 5
                iterations, its Arnoldi state saved, loaded and resumed against
                the uninterrupted solve.
- 20. sharded - the row-sharded path on a 1-rank NCCL group opened by
+ 21. sharded - the row-sharded path on a 1-rank NCCL group opened by
                `parallel.distributed.init_distributed` (closed at the end):
                K3 on 4 row bands of a random 2048^2 state, each extended by
                a rank's halo rows, concatenated and held bit-equal to K2,
@@ -115,7 +133,7 @@ yardstick only, the port never calls it.
                and that L2, the discretization error, is held within 1% of
                JAX's (tol 1e-10 leaves an algebraic error of ~1% of it at
                2048^2, whose sign and size follow the Krylov path).
- 21. at_scale - the single-device main path (`bench_solve`'s build and
+ 22. at_scale - the single-device main path (`bench_solve`'s build and
                solve, lsc_mg_full, eta_n=100) at the JAX package's
                SOLVE_r05.json rows: 1024^2 hybrid unrestarted (tol 1e-10),
                1024^2 ir with K2 (outer tol 1e-8) and 2048^2 hybrid with
@@ -134,13 +152,14 @@ yardstick only, the port never calls it.
                of SHARDED_r05.json's 2048^2 discretization error. The
                setup memo and the device's cached blocks are dropped
                before each row.
-Each of phases 15-21 prints one JSON line with its seconds. The line
+Each of phases 6 and 16-22 prints one JSON line with its seconds. The line
 before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -179,6 +198,7 @@ from mpbp_tpu_torch.parallel.pallas_sharded import (
     make_fused_apply_pallas_sharded)
 from mpbp_tpu_torch.solvers import eigen
 from mpbp_tpu_torch.solvers import gmres as krylov
+from mpbp_tpu_torch.solvers import graphs
 from mpbp_tpu_torch.solvers import preconditioners as pcs
 from mpbp_tpu_torch.solvers.mixed import fgmres_ir
 from mpbp_tpu_torch.solvers.preconditioners import make_lsc_pc_mixed
@@ -219,6 +239,12 @@ SLICE = dict(n=512, c=1, d=-1, xi=1, eta_n=100, eta_s=1, pc="lsc_mg_full",
              precision="hybrid", tol=1e-10, maxiter=40, inner_tol=1e-4,
              inner_iters=40)
 L2_DISCRETIZATION = 2.3039e-5     # the MMS discretization error at 512^2
+# the slice's count and L2 on the H100 before its PC was a CUDA graph (the
+# eager solve with early-exit inner GMRES); held to +-1 and 0.1%
+SLICE_ITERS_EAGER, SLICE_L2_EAGER = 18, 2.303903e-5
+# graphs: the slice's hybrid PC apply and warm solve, eager against graph
+# replay, at these sizes
+GRAPHS_N = (512, 1024)
 # the slice's PC without the f64 refinement pass around each f32 inner
 # solve (make_lsc_pc_mixed(refine_inners=False)): the f32 inner noise
 # floors the outer FGMRES far above tol (the JAX package's docstring:
@@ -617,6 +643,10 @@ def phase_slice(dev) -> dict:
         check(rep.iters <= 24, f"{rep.iters} iterations > 24")
         check(abs(l2 - L2_DISCRETIZATION) <= 0.05 * L2_DISCRETIZATION,
               f"L2 {l2:.6e} not within 5% of {L2_DISCRETIZATION}")
+        check(abs(rep.iters - SLICE_ITERS_EAGER) <= 1,
+              f"{rep.iters} iterations, not {SLICE_ITERS_EAGER} +- 1")
+        check(abs(l2 - SLICE_L2_EAGER) <= 1e-3 * SLICE_L2_EAGER,
+              f"L2 {l2:.6e} not within 0.1% of {SLICE_L2_EAGER}")
         check(tuple(rep.x.shape) == (5 * n * n,)
               and bool(torch.isfinite(rep.x).all()),
               "solution has the wrong shape or non-finite values")
@@ -627,14 +657,13 @@ def phase_slice(dev) -> dict:
     return runs
 
 
-def _slice_pieces(dev) -> tuple:
-    """What the slice's hybrid solve is built from: the f64 operator, the
-    MMS rhs and solution vectors and the f32 lsc_mg_full inner solvers."""
+def _slice_pieces(dev, n: int = SLICE["n"]) -> tuple:
+    """What the slice's hybrid solve is built from, at n: the f64
+    operator, the MMS rhs and solution vectors and the f32 lsc_mg_full
+    inner solvers."""
     p = {k: SLICE[k] for k in ("c", "d", "xi", "eta_n", "eta_s")}
-    op64 = make_multiphase_operator(SLICE["n"], **p, dtype=torch.float64,
-                                    device=dev)
-    op32 = make_multiphase_operator(SLICE["n"], **p, dtype=torch.float32,
-                                    device=dev)
+    op64 = make_multiphase_operator(n, **p, dtype=torch.float64, device=dev)
+    op32 = make_multiphase_operator(n, **p, dtype=torch.float32, device=dev)
     u, b = mms.fill_sol_and_rhs(op64.grid, mms.variable_thn_problem(
         *(float(v) for v in p.values())))
     f32, p32 = lsc_inners(op32, "lsc_mg_full", inner_tol=SLICE["inner_tol"],
@@ -687,6 +716,156 @@ def _slice_no_refine(dev, refined_iters: int) -> dict:
     return dict(iters=res.iters, converged=res.converged, seconds=secs,
                 launches=launches, true_relres=true_res, l2=l2)
 
+def _apply_profile(M, v, busy: bool) -> dict:
+    """One PC apply M(v): host us to enqueue it, wall us to its end and K1's
+    launches; with `busy`, one more apply under torch.profiler gives the
+    device busy us and the launches (kernels, copies and sets; for a replay
+    these are the graph's nodes), and the idle share against the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    k1 = cuda_stencil.LAUNCHES["f_apply"]
+    t0 = time.perf_counter()
+    M(v)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(host_us=host * 1e6, wall_us=wall * 1e6,
+               k1_launches=cuda_stencil.LAUNCHES["f_apply"] - k1)
+    if not busy:
+        return out
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        M(v)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    secs = sum(e.self_device_time_total for e in events) / 1e6
+    out["device_launches"] = sum(e.count for e in events)
+    if secs:
+        out.update(busy_us=secs * 1e6, idle_share=1 - secs / wall)
+    else:
+        out.update(busy_us="not measured", idle_share="not measured")
+    return out
+
+
+def _graphs_solve(label: str, M, mv, b_vec, u_vec, op64, census) -> dict:
+    """The warm hybrid solve with M (graphed, or eager inside
+    graphs.disabled()), its launches and the F inner census."""
+    _reset_counts()
+    census.zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if label == "eager":
+        with graphs.disabled():
+            res = krylov.fgmres(mv, b_vec, tol=SLICE["tol"],
+                                maxiter=SLICE["maxiter"], M=M)
+    else:
+        res = krylov.fgmres(mv, b_vec, tol=SLICE["tol"],
+                            maxiter=SLICE["maxiter"], M=M)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return dict(iters=res.iters, converged=res.converged, seconds=secs,
+                x=res.x, l2=norms_report(res.x, u_vec, op64.grid.dx,
+                                         op64.grid.dy)["l2"],
+                launches={k: cuda_stencil.LAUNCHES[k]
+                          for k in ("f_apply", "a_apply")},
+                census=census.cpu().tolist())
+
+
+def _wasted(census: list, budget: int) -> tuple[int, float]:
+    """(inner calls, share of their budgeted steps that were masked)."""
+    calls = sum(census)
+    masked = sum(c * (budget - k) for k, c in enumerate(census))
+    return calls, masked / (calls * budget) if calls else 0.0
+
+
+def phase_graphs(dev) -> dict:
+    """The slice's hybrid PC apply captured as a CUDA graph
+    (`solvers/graphs.GraphedApply`) against the same apply run eagerly
+    (module docstring, 6)."""
+    t_phase = time.perf_counter()
+    out = {}
+    for n in GRAPHS_N:
+        _free_device_memory()
+        op64, b_vec, u_vec, f32, p32 = _slice_pieces(dev, n)
+        budget = f32.maxiter
+        f32.census = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
+        M = make_lsc_pc_mixed(op64, f32, p32)
+        G = graphs.GraphedApply(M)
+        mv = a_matvec(op64)
+        v = torch.as_tensor(np.random.default_rng(0).normal(
+            size=5 * n * n), device=dev)
+        eager = M(v)
+        t0 = time.perf_counter()
+        G(v)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        replayed = G(v)
+        same = torch.equal(replayed, eager)
+        diff = float((replayed - eager).abs().max() / eager.abs().max())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            three = [G(v) for _ in range(3)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        say("graphs", n=n, capture_s=f"{capture_s:.3f}",
+            replay_bit_equal=same, max_rel_diff=f"{diff:.3e}",
+            sync_debug_error_applies=len(three),
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        check(same, f"graphs n={n}: the replayed PC apply differs from the "
+                    f"eager one by {diff:.3e} of max")
+        check(all(torch.equal(t, eager) for t in three),
+              f"graphs n={n}: an apply under sync-debug 'error' differs")
+        applies = {}
+        for label in ("eager", "graphed", "graphed", "eager"):
+            with contextlib.ExitStack() as stack:
+                if label == "eager":
+                    stack.enter_context(graphs.disabled())
+                rows = applies.setdefault(label, [])
+                rows.append(_apply_profile(G, v, busy=not rows))
+        for label, rows in applies.items():
+            for r in rows:
+                say("graphs", n=n, pc_apply=label,
+                    **{k: (f"{x:.1f}" if isinstance(x, float) else x)
+                       for k, x in r.items()})
+        solves = {}
+        for label in ("eager", "graphed", "graphed", "eager"):
+            r = _graphs_solve(label, G, mv, b_vec, u_vec, op64, f32.census)
+            calls, wasted = _wasted(r["census"], budget)
+            say("graphs", n=n, solve=label, iters=r["iters"],
+                seconds=f"{r['seconds']:.3f}", l2=f"{r['l2']:.6e}",
+                launches=json.dumps(r["launches"]),
+                f_inner_calls=calls, f_inner_budget=budget,
+                census=json.dumps(r["census"]),
+                masked_share=f"{wasted:.4f}")
+            check(r["converged"], f"graphs n={n}: {label} solve did not "
+                                  "converge")
+            solves.setdefault(label, []).append(r)
+        first = solves["eager"][0]
+        for label, rows in solves.items():
+            for r in rows:
+                check(r["iters"] == first["iters"]
+                      and torch.equal(r["x"], first["x"])
+                      and r["census"] == first["census"],
+                      f"graphs n={n}: the {label} solve is not the eager "
+                      f"one ({r['iters']} against {first['iters']} "
+                      "iterations, or another x or census)")
+        for rows in solves.values():
+            for r in rows:
+                r.pop("x")
+        calls, wasted = _wasted(first["census"], budget)
+        out[n] = dict(capture_s=capture_s, applies=applies, solves=solves,
+                      f_inner_calls=calls, f_inner_budget=budget,
+                      masked_share=wasted)
+        del M, G, f32, p32, op64, eager, replayed, three
+    _free_device_memory()
+    emit("graphs", seconds=time.perf_counter() - t_phase, **{
+        str(n): {k: v for k, v in r.items()} for n, r in out.items()})
+    return out
+
 
 def phase_layers(dev) -> None:
     """Wall time per layer of one hybrid solve, each layer's calls wrapped
@@ -733,9 +912,11 @@ def profile_window(phase: str, run, kernels: dict, top: int = 0) -> int:
     self time over all kernels, the totals of the named kernels ({label:
     name pattern}) and the `top` busiest kernels. The profiler slows the
     host, so the idle share is taken against an unprofiled run's wall
-    time. Returns the window's kernel launches (0: not measured)."""
+    time, after a first run that warms the setup and its graph. Returns
+    the window's kernel launches (0: not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
+    run()       # warm: a first call may build a setup or capture a graph
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
@@ -1933,7 +2114,7 @@ def _mesh_2d_versus_1d(dev) -> dict:
 
 
 def phase_sharded(dev) -> dict:
-    """The row-sharded path on one NCCL rank (module docstring, 20). The
+    """The row-sharded path on one NCCL rank (module docstring, 21). The
     K3 launches of each solve are counted from 0 just before it."""
     t_phase = time.perf_counter()
     _free_device_memory()
@@ -2066,7 +2247,7 @@ def _true_relres(setup, x) -> float:
 
 
 def _at_scale_row(dev, label: str, argv: list, jax_count, jax_l2) -> dict:
-    """One AT_SCALE row (module docstring, 21)."""
+    """One AT_SCALE row (module docstring, 22)."""
     _free_device_memory()
     args = bench_solve.parse_args(argv + ["--device", str(dev)])
     t0 = time.perf_counter()
@@ -2160,7 +2341,7 @@ def _at_scale_row(dev, label: str, argv: list, jax_count, jax_l2) -> dict:
 
 def phase_at_scale(dev) -> dict:
     """The single-device main path at the JAX package's 1024^2 and 2048^2
-    rows (module docstring, 21)."""
+    rows (module docstring, 22)."""
     t_phase = time.perf_counter()
     out = {}
     for label, argv, jax_count, jax_l2 in AT_SCALE:
@@ -2188,6 +2369,7 @@ def main() -> None:
     kres = phase_kernels(dev)
     phase_mms(dev)
     runs = phase_slice(dev)
+    phase_graphs(dev)
     phase_layers(dev)
     phase_profile(dev)
     sres = phase_sparse_kernels(dev)

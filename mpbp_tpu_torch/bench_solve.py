@@ -15,7 +15,9 @@ appended by torch.cat, then kernel K3) or pipelined (kernel K4). It is
 held against the plain apply first; a mismatch raises.
 
 The setup (assembly, MMS vectors, preconditioner) is timed on its own;
-then one cold solve and one warm solve, each ending in a host sync. Prints
+then one cold solve and one warm solve, each ending in a host sync. On a
+CUDA device the preconditioner is a CUDA graph (`drivers.graph_pc`),
+captured in the cold solve and replayed in the warm one. Prints
 one JSON line with the keys of `benchmarks/solve_tpu.py` and a few more
 (the cold time, the true relres, the device and its peak memory).
 """
@@ -32,7 +34,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mpbp_tpu_torch.drivers import (a_matvec, make_preconditioner,
+from mpbp_tpu_torch.drivers import (a_matvec, graph_pc, make_preconditioner,
                                     make_preconditioner_mixed, pack_fields)
 from mpbp_tpu_torch.models import mms
 from mpbp_tpu_torch.models.fused import make_fused_apply_kernel
@@ -120,7 +122,8 @@ def build(args: argparse.Namespace) -> Setup:
         M = make_preconditioner(op32, args.pc, dtype=torch.float32, **inner)
         scale = block_scales(op64)
     _sync(device)
-    return Setup(op32, op64, b64, u64, a_matvec(op64), M, scale, setup_s,
+    return Setup(op32, op64, b64, u64, a_matvec(op64),
+                 graph_pc(M, args.pc, device), scale, setup_s,
                  time.perf_counter() - t0)
 
 

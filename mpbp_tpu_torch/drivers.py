@@ -10,6 +10,12 @@ kinds factor on the host (`mpbp_tpu_torch.native`) and apply their triangular
 solves on the device, each Neumann sweep one launch of kernel K7
 (`ops/cuda_ell.py`). On a CPU device every kernel runs its plain PyTorch
 version.
+
+On a CUDA device the preconditioner a solve setup builds is captured once
+as a CUDA graph and replayed on every outer iteration (`graph_pc`,
+`solvers/graphs.py`: the port's counterpart of the JAX package's jitted
+cycle); `graphs.disabled()` runs it eagerly. The sharded driver runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from mpbp_tpu_torch.models.fused import make_f_apply, make_fused_apply
 from mpbp_tpu_torch.models.multiphase import (ALL_FIELDS, MultiphaseOperator,
                                               make_multiphase_operator)
 from mpbp_tpu_torch.solvers import eigen
+from mpbp_tpu_torch.solvers import graphs
 from mpbp_tpu_torch.solvers import gmres as krylov
 from mpbp_tpu_torch.solvers import preconditioners as pcs
 from mpbp_tpu_torch.solvers.mixed import block_scales, fgmres_ir
@@ -228,6 +235,20 @@ def make_preconditioner_mixed(op64: MultiphaseOperator,
     return pcs.make_lsc_pc_mixed(op64, f_inner32, p_inner32)
 
 
+# kinds whose apply reads the host, which a CUDA graph cannot capture: the
+# exact-Schur PC's inner GMRES exits early on its own stop test
+EAGER_KINDS = ("exact_schur",)
+
+
+def graph_pc(M: Callable | None, kind: str, device) -> Callable | None:
+    """The preconditioner of kind `kind` as the solves run it: on a CUDA
+    device a `graphs.GraphedApply`, unless its kind reads the host
+    (EAGER_KINDS); unchanged on the CPU (None stays None)."""
+    if M is None or kind in EAGER_KINDS or torch.device(device).type != "cuda":
+        return M
+    return graphs.GraphedApply(M)
+
+
 @dataclasses.dataclass(eq=False)
 class _SolveSetup:
     """Memoized per-configuration solve setup (see _solve_setup)."""
@@ -248,8 +269,9 @@ _SETUP_CACHE_MAX = 4
 def _solve_setup(n, c, d, xi, eta_n, eta_s, problem, dtype, pc, precision,
                  device, pc_kwargs: dict) -> _SolveSetup:
     """Build (or reuse) everything a solve needs except the Krylov loop:
-    operators, MG hierarchies and the MMS vectors, all on `device`. A
-    repeated solve of the same configuration reuses them (a warm solve)."""
+    operators, MG hierarchies and the MMS vectors, all on `device`, and
+    the PC as `graph_pc` wraps it. A repeated solve of the same
+    configuration reuses them (a warm solve), its PC's graph included."""
     device = torch.device(device)
     try:
         key = (n, c, d, xi, eta_n, eta_s, problem, dtype, pc, precision,
@@ -285,7 +307,7 @@ def _solve_setup(n, c, d, xi, eta_n, eta_s, problem, dtype, pc, precision,
                                     **pc_kwargs)
             mv32 = a_matvec(op32)
             scale = block_scales(op)
-    setup = _SolveSetup(op=op, M=M, mv=a_matvec(op),
+    setup = _SolveSetup(op=op, M=graph_pc(M, pc, device), mv=a_matvec(op),
                         b_vec=pack_fields(op, b),
                         u_vec=pack_fields(op, u_exact), mv32=mv32,
                         scale=scale)

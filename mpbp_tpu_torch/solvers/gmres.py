@@ -4,25 +4,42 @@
     re-orthogonalization pass (CGS2, the default), or CGS1 with a DGKS
     selective second pass. Each projection is one matmul against the basis
     rows built so far, so its cost grows with the current dimension j.
-  * The Hessenberg QR is updated with Givens rotations on the host, in the
-    working dtype: the projection coefficients and the new norm come to the
-    host once per iteration, which is also the convergence test's sync.
+  * The Arnoldi state lives on the vectors' device, as the JAX package's
+    while_loop carry does: the rotated Hessenberg, the Givens rotations,
+    the rotated rhs, the history, the count j and the done/lost flags are
+    tensors in the working dtype. The new column is rotated through the
+    earlier rotations on the device, one at a time in the host's order of
+    operations (so the rotated column has the host loop's bits), and the
+    breakdown and stop tests are device masks, not branches.
   * Flexible preconditioning stores Z_j = M(v_j), since the inner solves
     (inner Krylov, multigrid) vary from call to call.
 
+Two kinds of loop drive the one Arnoldi step. The early-exit loops
+(`fgmres`, `gmres`, `fgmres_resumable`, `cg`, restarted cycles) read the
+`done` flag once an iteration and build a `KrylovResult` of host types
+after the loop, from one read of the state; they back-substitute on the
+host, in the working dtype, so their iterates have the bits of a solver
+that keeps H on the host (at tol 1e-10 the card's sharded 1024^2 count
+sits at the f64 floor and follows those bits). The fixed-budget loops
+(`gmres_fixed`, `cg_fixed`: the inner solves of the preconditioners) read
+nothing back: they run all `maxiter` steps, a step after `done` changes
+nothing (every update is masked), and they back-substitute on the device,
+so their count is an early-exit run's and their x is its x to rounding.
+That is `lax.while_loop` with its static bound minus the early exit, which
+a CUDA graph (`solvers/graphs.py`) cannot take; the masked steps are real
+device work.
+
 Vectors may have any shape (flat or stacked grid fields); the basis adds a
-leading axis. The loops run eagerly; the convergence test costs one host
-sync per iteration. One iteration is `_arnoldi_step` on an `ArnoldiState`,
-so `fgmres_resumable` can stop after any iteration and resume.
+leading axis. One iteration is `_arnoldi_step` on an `ArnoldiState`, so
+`fgmres_resumable` can stop after any iteration and resume.
 
 Under a row-sharded mesh (`parallel/sharding.py`) each rank holds its band
 of every vector and passes the axis's process group as `group`: every
-inner product and norm is then one all-reduce over it, and every branch
-reads an all-reduced value, which NCCL and gloo give every rank bit for
-bit, so the ranks branch alike. CGS2 batches the first projection with
-the norm before it, and CGS1 its projections with the norm, into one
-all-reduce a pass. Without `group` nothing is reduced and the arithmetic
-is the single-device one.
+inner product and norm is then one all-reduce over it, and every flag and
+loop exit is computed from all-reduced values, which NCCL and gloo give
+every rank bit for bit, so the ranks step alike. CGS2 batches the first
+projection with the norm before it into one all-reduce a pass. Without
+`group` nothing is reduced and the arithmetic is the single-device one.
 """
 
 from __future__ import annotations
@@ -41,6 +58,13 @@ class KrylovResult(NamedTuple):
     relres: float             # final relative residual estimate
     res_history: np.ndarray   # (maxiter+1,) residual-norm estimates, NaN-padded
     converged: bool
+
+
+class DeviceResult(NamedTuple):
+    """What a fixed-budget solve returns: nothing is read back."""
+
+    x: torch.Tensor
+    iters: torch.Tensor       # () int64 on x's device: the converged count
 
 
 def flatten_op(op_apply: Callable, template: dict, fields) -> Callable:
@@ -78,38 +102,42 @@ def _vnorm(a, group=None):
     return torch.sqrt(_vdot(a, a, group))
 
 
-def _np_dtype(dtype: torch.dtype):
-    return np.float32 if dtype == torch.float32 else np.float64
-
-
-def _host(t: torch.Tensor, npdt) -> np.ndarray:
-    return t.detach().cpu().numpy().astype(npdt, copy=False)
+def _put(dst: torch.Tensor, new: torch.Tensor, live) -> None:
+    """dst <- new where `live` (a () bool tensor; None: always)."""
+    dst.copy_(new if live is None else torch.where(live, new, dst))
 
 
 @dataclasses.dataclass(eq=False)
 class ArnoldiState:
     """Mid-solve FGMRES/GMRES state (port of the JAX package's
     `ArnoldiState`). Resuming with the same (matvec, b, x0, maxiter, M)
-    continues the identical Krylov recurrence. The bases stay on the
-    vectors' device; the rotated Hessenberg, the Givens rotations, the
-    rotated rhs and the history live on the host in the working dtype.
+    continues the identical Krylov recurrence. Every field is a tensor on
+    the vectors' device, in the working dtype (j: int64, done/lost: bool).
     A step advances the state in place."""
 
-    j: int                # iterations completed
+    j: torch.Tensor       # () iterations completed
     V: torch.Tensor       # (m+1, N) orthonormal basis
     Z: torch.Tensor       # (m or 0, N) flexible preconditioned basis
-    H: np.ndarray         # (m+1, m) rotated Hessenberg (R factor)
-    cs: np.ndarray        # (m,) Givens cosines
-    sn: np.ndarray        # (m,) Givens sines
-    g: np.ndarray         # (m+1,) rotated rhs
-    hist: np.ndarray      # (m+1,) residual estimates, NaN-padded
-    done: bool            # convergence/breakdown flag
-    lost: bool = False    # done on a column that was dropped: not converged
+    H: torch.Tensor       # (m+1, m) rotated Hessenberg (R factor)
+    cs: torch.Tensor      # (m,) Givens cosines
+    sn: torch.Tensor      # (m,) Givens sines
+    g: torch.Tensor       # (m+1,) rotated rhs
+    hist: torch.Tensor    # (m+1,) residual estimates, NaN-padded
+    done: torch.Tensor    # () convergence/breakdown flag
+    lost: torch.Tensor    # () done on a column that was dropped
 
 
-def _safe_bnorm(b: torch.Tensor, group=None):
-    b_norm = float(_vnorm(b, group))
-    return _np_dtype(b.dtype)(1.0 if b_norm == 0 else b_norm)
+def _over(w: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """w / d for a () tensor d, rounded as a division by the host scalar
+    float(d) rounds (on CUDA PyTorch multiplies by its reciprocal, on the
+    CPU it divides): the basis keeps the bits it had when the norm was
+    read back to the host."""
+    return w * torch.reciprocal(d) if w.is_cuda else w / d
+
+
+def _safe_bnorm(b: torch.Tensor, group=None) -> torch.Tensor:
+    b_norm = _vnorm(b, group)
+    return torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
 
 
 def _arnoldi_init(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
@@ -117,47 +145,28 @@ def _arnoldi_init(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
                   safe_bnorm, group=None) -> ArnoldiState:
     """Fresh Arnoldi state of an m-iteration cycle from the residual at x0."""
     N = b.numel()
-    npdt = _np_dtype(b.dtype)
+    kw = dict(dtype=b.dtype, device=b.device)
     r0 = b - matvec(x0)
-    beta = npdt(float(_vnorm(r0, group)))
-    V = torch.zeros((m + 1, N), dtype=b.dtype, device=b.device)
-    Z = torch.zeros((m if use_z else 0, N), dtype=b.dtype, device=b.device)
-    V[0] = (r0 / float(beta) if beta > 0 else r0).reshape(-1)
-    g = np.zeros(m + 1, npdt)
+    beta = _vnorm(r0, group)
+    V = torch.zeros((m + 1, N), **kw)
+    Z = torch.zeros((m if use_z else 0, N), **kw)
+    V[0] = _over(r0, torch.where(beta > 0, beta, torch.ones_like(beta))
+                 ).reshape(-1)
+    g = torch.zeros(m + 1, **kw)
     g[0] = beta
-    hist = np.full(m + 1, np.nan, npdt)
+    hist = torch.full((m + 1,), float("nan"), **kw)
     hist[0] = beta
-    return ArnoldiState(0, V, Z, np.zeros((m + 1, m), npdt), np.zeros(m, npdt),
-                        np.zeros(m, npdt), g, hist,
-                        bool(beta / safe_bnorm < tol))
+    return ArnoldiState(
+        torch.zeros((), dtype=torch.int64, device=b.device), V, Z,
+        torch.zeros((m + 1, m), **kw), torch.zeros(m, **kw),
+        torch.zeros(m, **kw), g, hist, beta / safe_bnorm < tol,
+        torch.zeros((), dtype=torch.bool, device=b.device))
 
 
-def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
-                  shape, tol: float, use_z: bool, orthog: str, safe_bnorm,
-                  aug: torch.Tensor | None = None, group=None) -> None:
-    """One FGMRES iteration on `state`, in place.
-
-    `aug`: optional (k, *S) augmentation directions consumed as the LAST k
-    flexible directions of the cycle (z_j = aug[j - (m-k)] for j >= m-k
-    instead of M(v_j)): the LGMRES augmented restart. The flexible
-    recurrence never requires z_j = M(v_j), so the minimization runs over
-    K_{m-k} + span{aug}. They must come last: the Krylov chain grows from
-    the previous v_j, so aug-first builds it on A*aug instead of r0."""
-    j, V, H, cs, sn, g = state.j, state.V, state.H, state.cs, state.sn, \
-        state.g
-    m = H.shape[1]
-    npdt = H.dtype.type
-    k_aug = 0 if aug is None else aug.shape[0]
-    v = V[j].reshape(shape)
-    if k_aug and j >= m - k_aug:
-        z = aug[j - (m - k_aug)].to(V.dtype)
-    else:
-        z = M(v)
-    w = matvec(z).reshape(-1)
-    if use_z:
-        state.Z[j] = z.reshape(-1)
-
-    Vj = V[:j + 1]
+def _orthogonalize(V: torch.Tensor, w: torch.Tensor, s: int, orthog: str,
+                   group):
+    """Project w off basis rows 0..s: (w, h, ||w||, ||w|| before)."""
+    Vj = V[:s + 1]
     if orthog == "cgs2":
         # [h1, ||w||^2] in one reduction, then h2, then the new norm
         hw = _allsum(torch.cat([Vj @ w, torch.sum(w * w)[None]]), group)
@@ -165,76 +174,142 @@ def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
         w = w - h1 @ Vj
         h2 = _allsum(Vj @ w, group)
         w = w - h2 @ Vj
-        hw = torch.cat([h1 + h2, _vnorm(w, group)[None],
-                        torch.sqrt(hw[-1])[None]])
-        hv = _host(hw, npdt)
-        h, wnorm, wnorm_pre = hv[:j + 1], hv[j + 1], hv[j + 2]
+        return w, h1 + h2, _vnorm(w, group), torch.sqrt(hw[-1])
+    # CGS1: one fused reduction [V; w]^T w gives the projections and
+    # ||w||^2; the new norm comes from the Pythagorean identity, with a
+    # second pass where the projection removed more than 1/sqrt(2) of w
+    # (DGKS). The second pass is always computed and taken by mask: the
+    # branch would read the host
+
+    def cgs_pass(w):
+        dots = _allsum(torch.cat([Vj, w[None]]) @ w, group)
+        hp, ww = dots[:-1], dots[-1]
+        return hp, ww, ww - torch.sum(hp * hp), w - hp @ Vj
+
+    h, ww, est2, w = cgs_pass(w)
+    h2, _, est2b, w2 = cgs_pass(w)
+    again = est2 < 0.5 * ww
+    zero = torch.zeros_like(ww)
+    return (torch.where(again, w2, w), torch.where(again, h + h2, h),
+            torch.sqrt(torch.maximum(torch.where(again, est2b, est2), zero)),
+            torch.sqrt(torch.maximum(ww, zero)))
+
+
+def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
+                  shape, s: int, tol: float, use_z: bool, orthog: str,
+                  safe_bnorm, aug: torch.Tensor | None = None,
+                  group=None) -> None:
+    """FGMRES iteration s of a cycle on `state`, in place, with no host
+    read. Every update is taken only where the state was not done, so a
+    step after done changes nothing (the fixed-budget loops); while not
+    done, s equals state.j (the early-exit loops step only then).
+
+    `aug`: optional (k, *S) augmentation directions consumed as the LAST k
+    flexible directions of the cycle (z_j = aug[j - (m-k)] for j >= m-k
+    instead of M(v_j)): the LGMRES augmented restart. The flexible
+    recurrence never requires z_j = M(v_j), so the minimization runs over
+    K_{m-k} + span{aug}. They must come last: the Krylov chain grows from
+    the previous v_j, so aug-first builds it on A*aug instead of r0."""
+    V, H = state.V, state.H
+    m = H.shape[1]
+    live = ~state.done
+    k_aug = 0 if aug is None else aug.shape[0]
+    if k_aug and s >= m - k_aug:
+        z = aug[s - (m - k_aug)].to(V.dtype)
     else:
-        # CGS1: one fused reduction [V; w]^T w gives the projections
-        # and ||w||^2; the new norm comes from the Pythagorean identity,
-        # with a second pass when the projection removed more than
-        # 1/sqrt(2) of w (DGKS)
-        def cgs_pass(w):
-            dots = _allsum(torch.cat([Vj, w[None]]) @ w, group)
-            hv = _host(dots, npdt)
-            hp, ww = hv[:-1], hv[-1]
-            w = w - dots[:-1] @ Vj
-            return hp, ww, ww - np.sum(hp * hp), w
+        z = M(V[s].reshape(shape))
+    w = matvec(z).reshape(-1)
+    if use_z:
+        _put(state.Z[s], z.reshape(-1), live)
 
-        h, ww, est2, w = cgs_pass(w)
-        wnorm_pre = np.sqrt(max(ww, npdt(0)))
-        if est2 < 0.5 * ww:
-            h2, _, est2, w = cgs_pass(w)
-            h = h + h2
-        wnorm = np.sqrt(max(est2, npdt(0)))
-
+    w, h, wnorm, wnorm_pre = _orthogonalize(V, w, s, orthog, group)
+    zero, one = torch.zeros_like(wnorm), torch.ones_like(wnorm)
     # breakdown: A z landed inside the current basis's span, and the column
     # ends the cycle
-    breakdown = bool(wnorm <= 1e-12 * wnorm_pre)
-    col = np.zeros(m + 1, npdt)
-    col[:j + 1] = h
-    col[j + 1] = 0 if breakdown else wnorm
+    breakdown = wnorm <= 1e-12 * wnorm_pre
+    col = torch.zeros(m + 1, dtype=V.dtype, device=V.device)
+    col[:s + 1] = h
+    col[s + 1] = torch.where(breakdown, zero, wnorm)
+    # through the rotations 0..s-1: each (c a + s b, -s a + c b) as products
+    # rounded one by one and summed, as the host's loop rounds them
+    R = torch.stack((torch.stack((state.cs, state.sn), 1),
+                     torch.stack((-state.sn, state.cs), 1)), 1)
+    for i in range(s):
+        p = R[i] * col[i:i + 2]
+        # an add, not a sum: the CPU sums f32 in f64
+        torch.add(p[:, 0], p[:, 1], out=col[i:i + 2])
+    a, b = col[s], col[s + 1]
+    rho = torch.sqrt(a * a + b * b)
+    scale = (wnorm_pre if s == 0
+             else torch.maximum(H[:s, :s].abs().amax(), wnorm_pre))
+    eps = torch.finfo(V.dtype).eps
+    # F1, a lost column: a breakdown whose rotated diagonal is rounding
+    # noise. z_s repeats a direction of Z (a variable preconditioner, or an
+    # augmentation along an earlier z), so H is singular: the estimate
+    # would read 0 and the back-substitution divide by that noise. The
+    # cycle ends at the last good column without claiming convergence (the
+    # JAX package's FGMRES does claim it here). A breakdown with H
+    # nonsingular, augmentation column or not, is an exact solve.
+    lost = live & breakdown & (rho <= max(1e-12, 100 * eps) * scale)
+    keep = live & ~lost
 
-    for i in range(j):
-        hi = cs[i] * col[i] + sn[i] * col[i + 1]
-        hip = -sn[i] * col[i] + cs[i] * col[i + 1]
-        col[i], col[i + 1] = hi, hip
+    rho_safe = torch.where(rho == 0, one, rho)
+    c = torch.where(rho == 0, one, a / rho_safe)
+    sn = torch.where(rho == 0, zero, b / rho_safe)
+    _put(V[s + 1], _over(w, torch.where(wnorm > 0, wnorm, one)),
+         keep & ~breakdown)
+    col[s] = c * a + sn * b
+    col[s + 1].zero_()        # a Python 0 would be a host-to-device copy
+    _put(H[:, s], col, keep)
+    _put(state.cs[s], c, keep)
+    _put(state.sn[s], sn, keep)
 
-    rho = np.sqrt(col[j] ** 2 + col[j + 1] ** 2)
-    scale = max(np.abs(H[:j, :j]).max(initial=npdt(0)), wnorm_pre)
-    if breakdown and rho <= max(1e-12, 100 * np.finfo(npdt).eps) * scale:
-        # not a happy breakdown: z_j repeats a direction of Z (a variable
-        # preconditioner, or an augmentation along an earlier z), so H is
-        # singular and its rotated diagonal is rounding noise. The estimate
-        # would read 0 and the back-substitution divide by that noise; the
-        # cycle ends at the last good column without claiming convergence
-        # (the JAX package's FGMRES does claim it here). A breakdown with H
-        # nonsingular, augmentation column or not, is an exact solve.
-        state.done = state.lost = True
-        return
-    if not breakdown:
-        V[j + 1] = w / float(wnorm) if wnorm > 0 else w
-    c_new = npdt(1) if rho == 0 else col[j] / rho
-    s_new = npdt(0) if rho == 0 else col[j + 1] / rho
-    cs[j], sn[j] = c_new, s_new
-    col[j] = c_new * col[j] + s_new * col[j + 1]
-    col[j + 1] = 0
-    H[:, j] = col
-
-    g_jp1 = -s_new * g[j]
-    g[j] = c_new * g[j]
-    g[j + 1] = g_jp1
-    res = abs(g_jp1)
-    state.hist[j + 1] = res
-    state.j = j + 1
-    state.done = bool(res / safe_bnorm < tol) or breakdown
+    g = state.g
+    g_next = -sn * g[s]
+    _put(g[s], c * g[s], keep)
+    _put(g[s + 1], g_next, keep)
+    res = g_next.abs()
+    _put(state.hist[s + 1], res, keep)
+    state.j += keep.to(torch.int64)
+    met = (res / safe_bnorm < tol) | breakdown
+    state.done = state.done | lost | (keep & met)
+    state.lost = state.lost | lost
 
 
-def _arnoldi_solution(state: ArnoldiState, x0: torch.Tensor, M: Callable,
-                      use_z: bool, safe_bnorm) -> KrylovResult:
-    """Assemble x from the (possibly mid-solve) Arnoldi state."""
+def _device_solution(state: ArnoldiState, x0: torch.Tensor, M: Callable,
+                     use_z: bool) -> torch.Tensor:
+    """x from the Arnoldi state with no host read: the upper triangular
+    system of its first j columns solved on the device over all m columns,
+    those past j masked to the identity and their entries of y set to 0."""
     j, H, g = state.j, state.H, state.g
     m = H.shape[1]
+    valid = torch.arange(m, device=j.device) < j
+    R = torch.where(valid[:, None] & valid[None, :], H[:m],
+                    torch.eye(m, dtype=H.dtype, device=H.device))
+    rhs = torch.where(valid, g[:m], torch.zeros_like(g[:m]))
+    y = torch.linalg.solve_triangular(R, rhs[:, None], upper=True)[:, 0]
+    y = torch.where(valid, y, torch.zeros_like(y))
+    if use_z:
+        dx = y @ state.Z
+    else:
+        dx = M((y @ state.V[:m]).reshape(x0.shape)).reshape(-1)
+    return x0 + dx.reshape(x0.shape)
+
+
+def _host_result(state: ArnoldiState, x0: torch.Tensor, M: Callable,
+                 use_z: bool, safe_bnorm) -> KrylovResult:
+    """The KrylovResult of an early-exit loop: one read of the state's
+    scalars, H, g and history, the back-substitution over its first j
+    columns on the host in the working dtype, and x on the device."""
+    m = state.H.shape[1]
+    dt = state.H.dtype
+    ok = state.done & ~state.lost
+    host = torch.cat([state.H.reshape(-1), state.g, state.hist,
+                      torch.stack((safe_bnorm, state.j.to(dt), ok.to(dt)))
+                      ]).cpu().numpy()
+    bnorm, j, ok = host[-3], int(host[-2]), bool(host[-1])
+    H = host[:(m + 1) * m].reshape(m + 1, m)
+    g, hist = host[(m + 1) * m:][:m + 1], host[(m + 1) * (m + 1):][:m + 1]
     x = x0
     if j > 0:
         y = np.zeros(j, H.dtype)
@@ -246,24 +321,49 @@ def _arnoldi_solution(state: ArnoldiState, x0: torch.Tensor, M: Callable,
         else:
             dx = M((yt @ state.V[:j]).reshape(x0.shape)).reshape(-1)
         x = x0 + dx.reshape(x0.shape)
-    res_final = abs(g[min(j, m)]) if j > 0 else state.hist[0]
-    return KrylovResult(x, j, float(res_final / safe_bnorm), state.hist,
-                        state.done and not state.lost)
+    res_final = abs(g[j]) if j > 0 else hist[0]
+    return KrylovResult(x, j, float(res_final / bnorm), hist, ok)
+
+
+def _steps(state: ArnoldiState, j: int, j_stop: int,
+           step: Callable) -> None:
+    """Step the state from its iteration j while not done, up to j_stop:
+    one host read of `done` an iteration."""
+    while j < j_stop and not bool(state.done):
+        step(j)
+        j += 1
 
 
 def _cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
            m: int, M: Callable, use_z: bool, orthog: str = "cgs2",
            aug: torch.Tensor | None = None, group=None) -> KrylovResult:
-    """One (F)GMRES cycle of at most m iterations (`aug`: see
-    `_arnoldi_step`)."""
-    if orthog not in ("cgs2", "cgs1"):
-        raise ValueError(f"unknown orthog {orthog!r}")
+    """One (F)GMRES cycle of at most m iterations, exiting early (`aug`:
+    see `_arnoldi_step`)."""
+    _check_orthog(orthog)
     safe_bnorm = _safe_bnorm(b, group)
     state = _arnoldi_init(matvec, b, x0, tol, m, use_z, safe_bnorm, group)
-    while not state.done and state.j < m:
-        _arnoldi_step(state, matvec, M, b.shape, tol, use_z, orthog,
-                      safe_bnorm, aug, group)
-    return _arnoldi_solution(state, x0, M, use_z, safe_bnorm)
+    _steps(state, 0, m, lambda s: _arnoldi_step(
+        state, matvec, M, b.shape, s, tol, use_z, orthog, safe_bnorm, aug,
+        group))
+    return _host_result(state, x0, M, use_z, safe_bnorm)
+
+
+def _fixed_cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
+                 tol: float, m: int, M: Callable, use_z: bool,
+                 orthog: str = "cgs2") -> DeviceResult:
+    """One (F)GMRES cycle of exactly m masked steps: no host read."""
+    _check_orthog(orthog)
+    safe_bnorm = _safe_bnorm(b)
+    state = _arnoldi_init(matvec, b, x0, tol, m, use_z, safe_bnorm)
+    for s in range(m):
+        _arnoldi_step(state, matvec, M, b.shape, s, tol, use_z, orthog,
+                      safe_bnorm)
+    return DeviceResult(_device_solution(state, x0, M, use_z), state.j)
+
+
+def _check_orthog(orthog: str) -> None:
+    if orthog not in ("cgs2", "cgs1"):
+        raise ValueError(f"unknown orthog {orthog!r}")
 
 
 def fgmres_resumable(matvec: Callable, b: torch.Tensor,
@@ -279,8 +379,7 @@ def fgmres_resumable(matvec: Callable, b: torch.Tensor,
     b/x0/maxiter/M). The steps are those of one uninterrupted `fgmres`
     cycle, so the iterates and history match it. The state is advanced in
     place (the JAX package returns a new one)."""
-    if orthog not in ("cgs2", "cgs1"):
-        raise ValueError(f"unknown orthog {orthog!r}")
+    _check_orthog(orthog)
     if x0 is None:
         x0 = torch.zeros_like(b)
     M = _identity if M is None else M
@@ -291,12 +390,12 @@ def fgmres_resumable(matvec: Callable, b: torch.Tensor,
     elif state.H.shape[1] != maxiter:
         raise ValueError(f"state is of a {state.H.shape[1]}-iteration "
                          f"cycle, maxiter is {maxiter}")
-    j_stop = maxiter if max_steps is None else min(state.j + max_steps,
-                                                   maxiter)
-    while not state.done and state.j < j_stop:
-        _arnoldi_step(state, matvec, M, b.shape, tol, True, orthog,
-                      safe_bnorm, group=group)
-    return _arnoldi_solution(state, x0, M, True, safe_bnorm), state
+    j0 = int(state.j)
+    j_stop = maxiter if max_steps is None else min(j0 + max_steps, maxiter)
+    _steps(state, j0, j_stop, lambda s: _arnoldi_step(
+        state, matvec, M, b.shape, s, tol, True, orthog, safe_bnorm,
+        group=group))
+    return _host_result(state, x0, M, True, safe_bnorm), state
 
 
 def fgmres(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
@@ -339,9 +438,21 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
                       group=group)
 
 
+def gmres_fixed(matvec: Callable, b: torch.Tensor,
+                x0: torch.Tensor | None = None, tol: float = 1e-8,
+                maxiter: int = 100, M: Callable | None = None,
+                orthog: str = "cgs2") -> DeviceResult:
+    """`gmres` (one cycle) as a fixed budget of maxiter steps that reads
+    nothing back: x and the on-device count of an early-exit run."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    M = _identity if M is None else M
+    return _fixed_cycle(matvec, b, x0, tol, maxiter, M, False, orthog)
+
+
 def residual_norm(matvec: Callable, b: torch.Tensor, x: torch.Tensor,
                   group=None):
-    """(r, ||r||) = (b - A x, its 2-norm)."""
+    """(r, ||r||) = (b - A x, its 2-norm), both on the device."""
     r = b - matvec(x)
     return r, _vnorm(r, group)
 
@@ -391,42 +502,92 @@ def _restarted(matvec, b, x0, tol, maxiter, restart, M, use_z, orthog,
                         result.converged)
 
 
+@dataclasses.dataclass(eq=False)
+class _CGState:
+    """The CG carry (the JAX package's `_cg_jit` loop state), on the
+    device."""
+
+    j: torch.Tensor
+    x: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    rn: torch.Tensor
+    hist: torch.Tensor
+    done: torch.Tensor
+
+
+def _cg_init(matvec, b, x0, tol, maxiter, M, safe_bnorm, group) -> _CGState:
+    r = b - matvec(x0)
+    z = M(r)
+    rn = _vnorm(r, group)
+    hist = torch.full((maxiter + 1,), float("nan"), dtype=b.dtype,
+                      device=b.device)
+    hist[0] = rn
+    return _CGState(torch.zeros((), dtype=torch.int64, device=b.device),
+                    x0, r, z, z, _vdot(r, z, group), rn, hist,
+                    rn / safe_bnorm < tol)
+
+
+def _cg_step(st: _CGState, matvec, M, s: int, tol, safe_bnorm,
+             group) -> None:
+    """CG iteration s on `st`, every update masked as `_arnoldi_step`'s."""
+    live = ~st.done
+    Ap = matvec(st.p)
+    pAp = _vdot(st.p, Ap, group)
+    zero = torch.zeros_like(pAp)
+    alpha = torch.where(pAp != 0, st.rz / pAp, zero)
+    x = st.x + alpha * st.p
+    r = st.r - alpha * Ap
+    z = M(r)
+    rz = _vdot(r, z, group)
+    beta = torch.where(st.rz != 0, rz / st.rz, zero)
+    p = z + beta * st.p
+    rn = _vnorm(r, group)
+
+    def take(new, old):
+        return torch.where(live, new, old)
+
+    st.x, st.r, st.z, st.p = (take(x, st.x), take(r, st.r), take(z, st.z),
+                              take(p, st.p))
+    st.rz, st.rn = take(rz, st.rz), take(rn, st.rn)
+    _put(st.hist[s + 1], rn, live)
+    st.j += live.to(torch.int64)
+    st.done = st.done | (live & (rn / safe_bnorm < tol))
+
+
 def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
        tol: float = 1e-8, maxiter: int = 200, M: Callable = _identity,
        group=None) -> KrylovResult:
-    """Preconditioned conjugate gradients for SPD operators."""
+    """Preconditioned conjugate gradients for SPD operators, exiting early
+    (one host read of `done` an iteration)."""
     if x0 is None:
         x0 = torch.zeros_like(b)
-    npdt = _np_dtype(b.dtype)
-    b_norm = float(_vnorm(b, group))
-    safe_bnorm = 1.0 if b_norm == 0 else b_norm
-
-    x = x0
-    r = b - matvec(x0)
-    z = M(r)
-    p = z
-    rz = _vdot(r, z, group)
-    rn = float(_vnorm(r, group))
-    hist = np.full(maxiter + 1, np.nan, npdt)
-    hist[0] = rn
-    done = rn / safe_bnorm < tol
+    safe_bnorm = _safe_bnorm(b, group)
+    st = _cg_init(matvec, b, x0, tol, maxiter, M, safe_bnorm, group)
     j = 0
-    while not done and j < maxiter:
-        Ap = matvec(p)
-        pAp = _vdot(p, Ap, group)
-        alpha = torch.where(pAp != 0, rz / pAp, torch.zeros_like(pAp))
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = M(r)
-        rz_new = _vdot(r, z, group)
-        beta = torch.where(rz != 0, rz_new / rz, torch.zeros_like(rz))
-        p = z + beta * p
-        rz = rz_new
-        rn = float(_vnorm(r, group))
-        hist[j + 1] = rn
+    while j < maxiter and not bool(st.done):
+        _cg_step(st, matvec, M, j, tol, safe_bnorm, group)
         j += 1
-        done = rn / safe_bnorm < tol
-    return KrylovResult(x, j, rn / safe_bnorm, hist, bool(done))
+    host = torch.cat([st.hist, (st.rn / safe_bnorm)[None],
+                      st.done.to(b.dtype)[None]]).cpu().numpy()
+    return KrylovResult(st.x, j, float(host[maxiter + 1]), host[:maxiter + 1],
+                        bool(host[maxiter + 2]))
+
+
+def cg_fixed(matvec: Callable, b: torch.Tensor,
+             x0: torch.Tensor | None = None, tol: float = 1e-8,
+             maxiter: int = 200, M: Callable = _identity) -> DeviceResult:
+    """`cg` as a fixed budget of maxiter masked steps that reads nothing
+    back: x and the on-device count of an early-exit run."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    safe_bnorm = _safe_bnorm(b)
+    st = _cg_init(matvec, b, x0, tol, maxiter, M, safe_bnorm, None)
+    for s in range(maxiter):
+        _cg_step(st, matvec, M, s, tol, safe_bnorm, None)
+    return DeviceResult(st.x, st.j)
 
 
 def jacobi(matvec: Callable, diag: torch.Tensor, b: torch.Tensor,

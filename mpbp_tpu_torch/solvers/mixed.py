@@ -8,8 +8,12 @@ correct with an f32 FGMRES solve. Each outer step multiplies the
 achievable residual by the f32 solve's relative accuracy (~1e-5), so 2-3
 steps reach 1e-8 with almost all the work in f32.
 
-The JAX package's jit and closure-hoisting caches around these steps are
-not needed here: PyTorch runs the same arithmetic eagerly.
+The JAX package jits each inner FGMRES cycle with its preconditioner. Here
+the f32 preconditioner the drivers pass as `M32` is a CUDA graph on the
+card (`drivers.graph_pc`), replayed at every inner iteration, and the
+outer loop reads the host once an outer step and once an inner
+iteration (the inner cycle's stop test). The closure-hoisting caches
+have no counterpart: they existed for the JAX compiler.
 """
 
 from __future__ import annotations

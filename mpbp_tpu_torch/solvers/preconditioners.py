@@ -112,21 +112,36 @@ def _stencil_matvec(A_stencil: StencilOperator, dtype) -> Callable:
 @dataclasses.dataclass(eq=False)
 class KrylovInner:
     """Fixed-budget inner Krylov solve (matrix-free). The outer driver is
-    flexible GMRES, so a varying inner solve is legal."""
+    flexible GMRES, so a varying inner solve is legal. It runs all
+    `maxiter` steps of `gmres_fixed` / `cg_fixed` and reads nothing back
+    (steps past convergence change nothing), so a CUDA graph can replay it
+    (`solvers/graphs.py`); the JAX package's, under jit, exits early on
+    the device.
+
+    `census`, where set to a (maxiter+1,) int64 tensor on the solve's
+    device, counts each call's converged iterations: call c adds one at
+    index iters_c, on the device (one launch a call, captured with the
+    rest). maxiter - iters_c steps of that call were masked."""
 
     matvec: Callable
     tol: float = 1e-6
     maxiter: int = 50
     method: str = "gmres"      # "gmres" | "cg"
     M: Callable | None = None
+    census: torch.Tensor | None = None
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         if self.method == "cg":
-            res = krylov.cg(self.matvec, v, tol=self.tol, maxiter=self.maxiter,
-                            M=self.M if self.M is not None else (lambda x: x))
+            res = krylov.cg_fixed(self.matvec, v, tol=self.tol,
+                                  maxiter=self.maxiter,
+                                  M=self.M if self.M is not None
+                                  else (lambda x: x))
         else:
-            res = krylov.gmres(self.matvec, v, tol=self.tol,
-                               maxiter=self.maxiter, M=self.M)
+            res = krylov.gmres_fixed(self.matvec, v, tol=self.tol,
+                                     maxiter=self.maxiter, M=self.M)
+        if self.census is not None:
+            it = res.iters.view(1)
+            self.census.index_add_(0, it, torch.ones_like(it))
         return res.x
 
 

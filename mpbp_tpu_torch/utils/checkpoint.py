@@ -6,7 +6,8 @@ residual history) and of a mid-solve FGMRES `ArnoldiState`, so a long solve
 can resume after an interruption. The files are npz with the JAX package's
 layout (the same `kind` tags, keys and JSON `params`/`meta`), so a file
 either package writes, the other reads. Arrays come to the host on save and
-go to `device` on load.
+go to `device` on load: an `ArnoldiState` lives on the device whole (its
+scalars as 0-d tensors).
 """
 
 from __future__ import annotations
@@ -112,11 +113,14 @@ def load_arnoldi_state(path: str, *, device: torch.device | str):
         flat = a.reshape(a.shape[0], int(np.prod(a.shape[1:])))
         return torch.as_tensor(flat[:rows], device=device)
 
+    def dev(a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
     state = ArnoldiState(
-        j=int(z["j"]), V=basis("V", m + 1), Z=basis("Z", m), H=H,
-        cs=np.asarray(z["cs"]), sn=np.asarray(z["sn"]),
-        g=np.asarray(z["g"]), hist=np.asarray(z["hist"]),
-        done=bool(z["done"]),
-        lost=bool(z.get("lost", False)))
+        j=dev(int(z["j"]), torch.int64), V=basis("V", m + 1),
+        Z=basis("Z", m), H=dev(H), cs=dev(z["cs"]), sn=dev(z["sn"]),
+        g=dev(z["g"]), hist=dev(z["hist"]),
+        done=dev(bool(z["done"]), torch.bool),
+        lost=dev(bool(z.get("lost", False)), torch.bool))
     return (state, torch.as_tensor(z["x0"], device=device),
             json.loads(str(z["meta"])))
