@@ -33,21 +33,28 @@ yardstick only, the port never calls it.
                to the f32 floor the JAX package records (not converged,
                true relres > 1e-7), its count, relres and L2 printed
                beside the refined count and --mode f64's.
-  6. graphs  - at n=512 and 1024, the slice's hybrid PC apply captured
-               as a CUDA graph (`solvers/graphs.GraphedApply`): the replay
-               held bit-equal to the eager apply, three replays under
-               torch.cuda.set_sync_debug_mode("error"); each apply eager
-               and replayed (in turns: eager, graph, graph, eager) with
-               its host us, wall us and K1 launches, and the first of each
-               under torch.profiler: device busy us, idle share and device
-               launches (for a replay, the graph's nodes);
-               then the warm solve both ways, in the same turns: seconds,
-               K1/K2 launches and the census of the F inner GMRES's
-               converged counts, with the share of its fixed budget that
-               ran masked past convergence. The four solves are held to
-               one count, one x and one census. The slice (5) and
-               at_scale (22) run with the graphed PC, as every CUDA solve
-               of `drivers` and `bench_solve` does.
+  6. graphs  - at n=512 and 1024, the slice's hybrid PC apply three
+               ways (`solvers/graphs.py`): eager (inside graphs.disabled():
+               the inner loops stop on a host read of done), a CUDA graph
+               of the masked budget (captured inside graphs.masked(): all
+               budgeted steps run) and a CUDA graph with an IF node a step
+               (`GraphedApply`'s default: a step runs where the loop would
+               have stepped). Each replay held bit-equal to the eager
+               apply, three replays of each under
+               torch.cuda.set_sync_debug_mode("error"); each apply in
+               turns (eager, masked, IF, IF, masked, eager) with its host
+               us, wall us and K1 launches, and the first of each under
+               torch.profiler (device busy us, idle share, device launches:
+               for a replay, the graph's kernels that ran) and with its
+               F-inner GMRES steps needed (the census), run and skipped;
+               then the warm solve the three ways, in the same turns:
+               seconds, K1/K2 launches, the census and the steps. The six
+               solves are held to one count, one x and one census, the IF
+               one to the eager one's launches and to no step run past
+               the early exit. Last, the per-op census of one 1024^2 IF
+               replay: every kernel by name, count and device us. The
+               slice (5) and at_scale (22) run with the IF graph, as every
+               CUDA solve of `drivers` and `bench_solve` does.
   7. layers  - one more solve with synchronized timers around the outer
                matvec, the F and pressure inner solves and the PC apply.
   8. profile - two outer iterations of the warm solve under torch.profiler:
@@ -73,7 +80,9 @@ yardstick only, the port never calls it.
  12. dia_lsc - path (b): LSC built from DIA matrices alone at n=128, FGMRES
                on A.to_dia(); every matvec is K5/K6, which is then held
                against its plain version on each of the path's six DIA
-               matrices.
+               matrices. The PC runs eagerly (its inner GMRES and CG stop
+               on a host read of done), then as an IF graph (cold, then
+               warm): the CG and the K5 launches inside IF bodies.
  13. halo_kernels - K3 (a_apply_band) and K4 (a_apply_staged) against
                their plain versions, f32 and f64: K3 on a real band (64
                rows of a random n=512 grid with h=8 neighbour rows, not
@@ -749,41 +758,85 @@ def _apply_profile(M, v, busy: bool) -> dict:
     return out
 
 
-def _graphs_solve(label: str, M, mv, b_vec, u_vec, op64, census) -> dict:
-    """The warm hybrid solve with M (graphed, or eager inside
-    graphs.disabled()), its launches and the F inner census."""
-    _reset_counts()
+# the ways a PC apply runs (`solvers/graphs.py`): eager inside
+# graphs.disabled() (the loops exit on a host read of done), a graph
+# captured inside graphs.masked() (every budgeted step runs, masked), a
+# graph with an IF node a step (the steps the early exit takes)
+GRAPH_TURNS = ("eager", "masked", "if", "if", "masked", "eager")
+
+
+def _way(way: str):
+    return graphs.disabled() if way == "eager" else contextlib.nullcontext()
+
+
+def _f_steps(way: str, G, census, budget: int, run):
+    """run() with the F inner census zeroed; returns its result and the
+    F-inner GMRES steps: those the early exit needs (the census), those
+    the card ran (eager: the needed ones; masked: the whole budget; IF:
+    the bodies the replays ran, from the graph's tallies) and those it
+    did not run."""
     census.zero_()
+    _build.settle_deferred()          # G.steps_run as of now
+    before = G.steps_run
+    out = run()
+    torch.cuda.synchronize()
+    _build.settle_deferred()
+    c = census.cpu().tolist()
+    calls = sum(c)
+    needed = sum(k * n for k, n in enumerate(c))
+    ran = {"eager": needed, "masked": calls * budget,
+           "if": G.steps_run - before}[way]
+    return out, dict(f_inner_calls=calls, f_steps_needed=needed,
+                     f_steps_run=ran, f_steps_skipped=calls * budget - ran,
+                     census=c)
+
+
+def _graphs_solve(way: str, G, mv, b_vec, u_vec, op64) -> dict:
+    """The warm hybrid solve with the PC run `way`, and its launches."""
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if label == "eager":
-        with graphs.disabled():
-            res = krylov.fgmres(mv, b_vec, tol=SLICE["tol"],
-                                maxiter=SLICE["maxiter"], M=M)
-    else:
+    with _way(way):
         res = krylov.fgmres(mv, b_vec, tol=SLICE["tol"],
-                            maxiter=SLICE["maxiter"], M=M)
+                            maxiter=SLICE["maxiter"], M=G)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return dict(iters=res.iters, converged=res.converged, seconds=secs,
                 x=res.x, l2=norms_report(res.x, u_vec, op64.grid.dx,
                                          op64.grid.dy)["l2"],
                 launches={k: cuda_stencil.LAUNCHES[k]
-                          for k in ("f_apply", "a_apply")},
-                census=census.cpu().tolist())
+                          for k in ("f_apply", "a_apply")})
 
 
-def _wasted(census: list, budget: int) -> tuple[int, float]:
-    """(inner calls, share of their budgeted steps that were masked)."""
-    calls = sum(census)
-    masked = sum(c * (budget - k) for k, c in enumerate(census))
-    return calls, masked / (calls * budget) if calls else 0.0
+def _op_census(phase: str, G, v, top: int = 30) -> list:
+    """One replay of G(v) under torch.profiler: every kernel by name with
+    its count and device us, busiest first (the top `top` printed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    G(v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        G(v)
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.count, e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[2])
+    total = sum(r[2] for r in rows)
+    say(phase, op_census="one IF-graph replay", kernels=len(rows),
+        launches=sum(r[1] for r in rows), device_us=f"{total:.1f}")
+    for name, count, us in rows[:top]:
+        say(phase, kernel=repr(name[:90]), count=count,
+            device_us=f"{us:.1f}",
+            share=f"{us / total:.4f}" if total else "not measured")
+    return [dict(kernel=name, count=count, device_us=us)
+            for name, count, us in rows]
 
 
 def phase_graphs(dev) -> dict:
-    """The slice's hybrid PC apply captured as a CUDA graph
-    (`solvers/graphs.GraphedApply`) against the same apply run eagerly
-    (module docstring, 6)."""
+    """The slice's hybrid PC apply eager, as a masked graph and as an IF
+    graph, against each other (module docstring, 6)."""
     t_phase = time.perf_counter()
     out = {}
     for n in GRAPHS_N:
@@ -792,75 +845,107 @@ def phase_graphs(dev) -> dict:
         budget = f32.maxiter
         f32.census = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
         M = make_lsc_pc_mixed(op64, f32, p32)
-        G = graphs.GraphedApply(M)
+        G, Gm = graphs.GraphedApply(M), graphs.GraphedApply(M)
+        ways = {"eager": G, "masked": Gm, "if": G}
         mv = a_matvec(op64)
         v = torch.as_tensor(np.random.default_rng(0).normal(
             size=5 * n * n), device=dev)
         eager = M(v)
-        t0 = time.perf_counter()
-        G(v)
-        torch.cuda.synchronize()
-        capture_s = time.perf_counter() - t0
-        replayed = G(v)
-        same = torch.equal(replayed, eager)
-        diff = float((replayed - eager).abs().max() / eager.abs().max())
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            three = [G(v) for _ in range(3)]
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        say("graphs", n=n, capture_s=f"{capture_s:.3f}",
-            replay_bit_equal=same, max_rel_diff=f"{diff:.3e}",
-            sync_debug_error_applies=len(three),
-            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-        check(same, f"graphs n={n}: the replayed PC apply differs from the "
-                    f"eager one by {diff:.3e} of max")
-        check(all(torch.equal(t, eager) for t in three),
-              f"graphs n={n}: an apply under sync-debug 'error' differs")
+        captured = {}
+        for way, graph in (("masked", Gm), ("if", G)):
+            t0 = time.perf_counter()
+            with (graphs.masked() if way == "masked"
+                  else contextlib.nullcontext()):
+                graph(v)
+            torch.cuda.synchronize()
+            captured[way] = time.perf_counter() - t0
+            replayed = graph(v)
+            same = torch.equal(replayed, eager)
+            diff = float((replayed - eager).abs().max() / eager.abs().max())
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                three = [graph(v) for _ in range(3)]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            say("graphs", n=n, graph=way, capture_s=f"{captured[way]:.3f}",
+                replay_bit_equal=same, max_rel_diff=f"{diff:.3e}",
+                sync_debug_error_applies=len(three),
+                if_bodies=graph.gated_steps,
+                peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+            check(same, f"graphs n={n}: the {way} replay differs from the "
+                        f"eager apply by {diff:.3e} of max")
+            check(all(torch.equal(t, eager) for t in three),
+                  f"graphs n={n}: a {way} apply under sync-debug 'error' "
+                  "differs")
+        check(G.gated_steps > 0 and Gm.gated_steps == 0,
+              f"graphs n={n}: {G.gated_steps} IF bodies in the IF graph, "
+              f"{Gm.gated_steps} in the masked one")
         applies = {}
-        for label in ("eager", "graphed", "graphed", "eager"):
-            with contextlib.ExitStack() as stack:
-                if label == "eager":
-                    stack.enter_context(graphs.disabled())
-                rows = applies.setdefault(label, [])
-                rows.append(_apply_profile(G, v, busy=not rows))
-        for label, rows in applies.items():
+        for way in GRAPH_TURNS:
+            rows = applies.setdefault(way, [])
+            with _way(way):
+                rows.append(_apply_profile(ways[way], v, busy=not rows))
+                if len(rows) == 1:
+                    _, steps = _f_steps(way, ways[way], f32.census, budget,
+                                        lambda: ways[way](v))
+                    steps.pop("census")
+                    rows[0].update(steps)
+        for way, rows in applies.items():
             for r in rows:
-                say("graphs", n=n, pc_apply=label,
+                say("graphs", n=n, pc_apply=way,
                     **{k: (f"{x:.1f}" if isinstance(x, float) else x)
                        for k, x in r.items()})
+        first = applies["eager"][0]
+        for way in ("if", "eager"):
+            r = applies[way][0]
+            check(r["f_steps_run"] == r["f_steps_needed"]
+                  and r["k1_launches"] == first["k1_launches"],
+                  f"graphs n={n}: the {way} apply ran {r['f_steps_run']} "
+                  f"F-inner steps and {r['k1_launches']} K1 launches; the "
+                  f"early exit needs {r['f_steps_needed']}, the eager apply "
+                  f"launched {first['k1_launches']}")
         solves = {}
-        for label in ("eager", "graphed", "graphed", "eager"):
-            r = _graphs_solve(label, G, mv, b_vec, u_vec, op64, f32.census)
-            calls, wasted = _wasted(r["census"], budget)
-            say("graphs", n=n, solve=label, iters=r["iters"],
+        for way in GRAPH_TURNS:
+            r, steps = _f_steps(way, ways[way], f32.census, budget,
+                                lambda: _graphs_solve(way, ways[way], mv,
+                                                      b_vec, u_vec, op64))
+            r.update(steps)
+            say("graphs", n=n, solve=way, iters=r["iters"],
                 seconds=f"{r['seconds']:.3f}", l2=f"{r['l2']:.6e}",
-                launches=json.dumps(r["launches"]),
-                f_inner_calls=calls, f_inner_budget=budget,
-                census=json.dumps(r["census"]),
-                masked_share=f"{wasted:.4f}")
-            check(r["converged"], f"graphs n={n}: {label} solve did not "
+                launches=json.dumps(r["launches"]), f_inner_budget=budget,
+                **{k: (json.dumps(x) if k == "census" else x)
+                   for k, x in steps.items()})
+            check(r["converged"], f"graphs n={n}: {way} solve did not "
                                   "converge")
-            solves.setdefault(label, []).append(r)
+            solves.setdefault(way, []).append(r)
         first = solves["eager"][0]
-        for label, rows in solves.items():
+        for way, rows in solves.items():
             for r in rows:
                 check(r["iters"] == first["iters"]
                       and torch.equal(r["x"], first["x"])
                       and r["census"] == first["census"],
-                      f"graphs n={n}: the {label} solve is not the eager "
+                      f"graphs n={n}: the {way} solve is not the eager "
                       f"one ({r['iters']} against {first['iters']} "
                       "iterations, or another x or census)")
+                if way != "masked":
+                    check(r["launches"] == first["launches"]
+                          and r["f_steps_run"] == r["f_steps_needed"],
+                          f"graphs n={n}: the {way} solve launched "
+                          f"{r['launches']} and ran {r['f_steps_run']} "
+                          f"F-inner steps; the eager one launched "
+                          f"{first['launches']} and needs "
+                          f"{r['f_steps_needed']}")
         for rows in solves.values():
             for r in rows:
                 r.pop("x")
-        calls, wasted = _wasted(first["census"], budget)
-        out[n] = dict(capture_s=capture_s, applies=applies, solves=solves,
-                      f_inner_calls=calls, f_inner_budget=budget,
-                      masked_share=wasted)
-        del M, G, f32, p32, op64, eager, replayed, three
+        census = (_op_census("graphs_census", G, v)
+                  if n == GRAPHS_N[-1] else None)
+        out[n] = dict(capture_s=captured, applies=applies, solves=solves,
+                      f_inner_budget=budget, if_bodies=G.gated_steps,
+                      op_census=census)
+        del M, G, Gm, ways, f32, p32, op64, eager, replayed, three
     _free_device_memory()
     emit("graphs", seconds=time.perf_counter() - t_phase, **{
         str(n): {k: v for k, v in r.items()} for n, r in out.items()})
@@ -1472,6 +1557,7 @@ def phase_dia_lsc(dev) -> dict:
     check(abs(l2 - DIA_LSC_L2) <= 0.01 * DIA_LSC_L2,
           f"dia_lsc L2 {l2:.6e} not within 1% of {DIA_LSC_L2}")
     check(launches > 0, "dia_spmv was not launched by the dia_lsc solve")
+    graphed = _dia_lsc_graphed(A, M, b_vec, u_vec, op, res)
     gtg, gtfg = lsc_products_device(*flat)
     cmp = compare_dia("dia_lsc", {
         f"A n={n}": A, f"-D n={n}": flat[0], f"F n={n}": flat[1],
@@ -1482,7 +1568,46 @@ def phase_dia_lsc(dev) -> dict:
                    lambda: krylov.fgmres(A.matvec, b_vec, tol=1e-8,
                                          maxiter=2, M=M),
                    {"dia_spmv_K5": "dia_spmv_tiled_kernel"}, top=6)
-    return dict(launches=launches, iters=res.iters, seconds=secs, cmp=cmp)
+    return dict(launches=launches, iters=res.iters, seconds=secs, cmp=cmp,
+                graphed=graphed)
+
+
+def _dia_lsc_graphed(A, M, b_vec, u_vec, op, eager) -> dict:
+    """Path (b)'s solve with its PC an IF graph (`GraphedApply`, as the
+    drivers run every CUDA PC): cold (the masked warm-up and the
+    capture), then warm, each held to the eager solve's bounds; x printed
+    against the eager solve's."""
+    G = graphs.GraphedApply(M)
+    out = {}
+    for run in ("cold", "warm"):
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = krylov.fgmres(A.matvec, b_vec, tol=1e-8, maxiter=80, M=G)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = cuda_dia.LAUNCHES["dia_spmv"]
+        l2 = norms_report(res.x, u_vec, op.grid.dx, op.grid.dy)["l2"]
+        _, rn = krylov.residual_norm(a_matvec(op), b_vec, res.x)
+        true_res = float(rn / torch.linalg.norm(b_vec))
+        say("dia_lsc", pc="IF graph", run=run, iters=res.iters,
+            relres=f"{res.relres:.3e}", true_relres=f"{true_res:.3e}",
+            l2=f"{l2:.6e}", seconds=f"{secs:.3f}",
+            dia_spmv_launches=launches, if_bodies=G.gated_steps,
+            if_bodies_run=G.steps_run,
+            x_bit_equal_to_eager=torch.equal(res.x, eager.x))
+        check(res.converged and res.iters <= DIA_LSC_MAX_ITERS,
+              f"dia_lsc IF graph {run}: {res.iters} iterations, converged "
+              f"{res.converged}")
+        check(true_res < 1e-7,
+              f"dia_lsc IF graph {run}: true relres {true_res:.3e} >= 1e-7")
+        check(abs(l2 - DIA_LSC_L2) <= 0.01 * DIA_LSC_L2,
+              f"dia_lsc IF graph {run}: L2 {l2:.6e} not within 1% of "
+              f"{DIA_LSC_L2}")
+        check(launches > 0 and G.gated_steps > 0,
+              f"dia_lsc IF graph {run}: {launches} K5 launches, "
+              f"{G.gated_steps} IF bodies")
+        out[run] = dict(iters=res.iters, seconds=secs, launches=launches)
+    return out
 
 
 def _versus_k2(phase: str, kernel: str, label: str, got, k2) -> dict:

@@ -14,8 +14,8 @@ version.
 On a CUDA device the preconditioner a solve setup builds is captured once
 as a CUDA graph and replayed on every outer iteration (`graph_pc`,
 `solvers/graphs.py`: the port's counterpart of the JAX package's jitted
-cycle); `graphs.disabled()` runs it eagerly. The sharded driver runs
-eagerly.
+cycle, its inner Krylov loops exiting on the device through IF nodes);
+`graphs.disabled()` runs it eagerly. The sharded driver runs eagerly.
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ one source rebuilds only its own library. A missing nvcc or a failed
 compile raises RuntimeError with nvcc's output: there is no fallback.
 `build_all` starts one nvcc per source at once; `launch` calls one entry
 point on PyTorch's current stream and raises if it returns an error.
+Each wrapper module counts its launches in a `Launches`.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ _SWEEPS_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _I32, _P]
 # ell_spmm: rowptr, cols, vals, nrows, group, col_lanes, vec, k, X, Y,
 # stream
 _SPMM_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I64, _P, _P, _P]
+# graph_if_begin: pred, body stream, stream; graph_if_end: stream
+_IF_BEGIN_ARGS = [_P, _P, _P]
 
 
 def _both(name: str, args: list) -> dict:
@@ -67,9 +70,60 @@ SOURCES = {
                     **_both("ell_spmv", _ELL_ARGS),
                     **_both("ell_sweeps", _SWEEPS_ARGS),
                     **_both("ell_spmm", _SPMM_ARGS)},
+    "graph_cond": {"graph_if_begin": _IF_BEGIN_ARGS, "graph_if_end": [_P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+
+# callables that add to the counts the launches replayed CUDA graphs made
+# on the device and have not reported yet (`solvers/graphs.py`)
+DEFERRED: list = []
+
+
+def settle_deferred() -> None:
+    """Run and drop every DEFERRED callable (each reads the device once),
+    unless a capture is in progress, where a read would break it."""
+    if DEFERRED and not (torch.cuda.is_available()
+                         and torch.cuda.is_current_stream_capturing()):
+        pending = DEFERRED[:]
+        DEFERRED.clear()
+        for settle in pending:
+            settle()
+
+
+class Launches(dict):
+    """Kernel launch counts by name. A wrapper counts with `add`; every
+    read and every assignment first settles the DEFERRED counts, so a
+    reader sees the launches the card ran."""
+
+    def add(self, name: str, n: int = 1) -> None:
+        dict.__setitem__(self, name, dict.__getitem__(self, name) + n)
+
+    def __getitem__(self, name):
+        settle_deferred()
+        return dict.__getitem__(self, name)
+
+    def __setitem__(self, name, value):
+        settle_deferred()
+        dict.__setitem__(self, name, value)
+
+    def __iter__(self):
+        settle_deferred()
+        return dict.__iter__(self)
+
+    def items(self):
+        settle_deferred()
+        return dict.items(self)
+
+    def values(self):
+        settle_deferred()
+        return dict.values(self)
+
+    def __eq__(self, other):
+        settle_deferred()
+        return dict.__eq__(self, other)
+
+    __hash__ = None
 
 
 def find_nvcc() -> str:

@@ -43,7 +43,7 @@ import torch.nn.functional as F
 
 from mpbp_tpu_torch.ops import _build
 
-LAUNCHES = {"dia_spmv": 0}
+LAUNCHES = _build.Launches(dia_spmv=0)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -162,5 +162,5 @@ def dia_spmv(A, x: torch.Tensor) -> torch.Tensor:
                   tiles.tile_ptr.data_ptr(), tiles.offsets.data_ptr(),
                   tiles.values.data_ptr(), tiles.rows, nrows, ncols,
                   x.data_ptr(), y.data_ptr())
-    LAUNCHES["dia_spmv"] += 1
+    LAUNCHES.add("dia_spmv")
     return y

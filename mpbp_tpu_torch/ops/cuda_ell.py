@@ -39,7 +39,7 @@ import torch
 
 from mpbp_tpu_torch.ops import _build
 
-LAUNCHES = {"ell_spmv": 0, "ell_spmm": 0}
+LAUNCHES = _build.Launches(ell_spmv=0, ell_spmm=0)
 
 _LANES = 128
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -220,7 +220,7 @@ def ell_spmv(A: CompressedRows, x: torch.Tensor,
                   A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
                   N, A.group, x.data_ptr(), b.data_ptr() if epi else None,
                   inv_d.data_ptr() if epi else None, y.data_ptr())
-    LAUNCHES["ell_spmv"] += 1
+    LAUNCHES.add("ell_spmv")
     return y
 
 
@@ -247,7 +247,7 @@ def ell_sweeps(A: CompressedRows, b: torch.Tensor, inv_d: torch.Tensor,
                   A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
                   A.shape[0], A.group, b.data_ptr(), inv_d.data_ptr(),
                   buf[0].data_ptr(), buf[1].data_ptr(), sweeps)
-    LAUNCHES["ell_spmv"] += sweeps
+    LAUNCHES.add("ell_spmv", sweeps)
     return buf[sweeps % 2]
 
 
@@ -275,7 +275,7 @@ def ell_spmm(A: CompressedRows, X: torch.Tensor) -> torch.Tensor:
                   A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
                   N, group, col_lanes, int(vec), k, X.data_ptr(),
                   Y.data_ptr())
-    LAUNCHES["ell_spmm"] += 1
+    LAUNCHES.add("ell_spmm")
     return Y
 
 

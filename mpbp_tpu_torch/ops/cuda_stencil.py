@@ -56,8 +56,8 @@ from mpbp_tpu_torch.models.fused import (multiphase_apply_math,
 from mpbp_tpu_torch.ops import _build
 from mpbp_tpu_torch.ops.stencil import shift
 
-LAUNCHES = {"f_apply": 0, "a_apply": 0, "a_apply_band": 0,
-            "a_apply_staged": 0}
+LAUNCHES = _build.Launches(f_apply=0, a_apply=0, a_apply_band=0,
+                          a_apply_staged=0)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -237,5 +237,5 @@ def _dispatch(name, reference, tensors, params, dx, dy, ints, out_shape):
                   float(params["eta_n"]), float(params["eta_s"]),
                   float(params.get("d_p", 1.0)),
                   float(params.get("d_div", -1.0)), float(dx), float(dy))
-    LAUNCHES[name] += 1
+    LAUNCHES.add(name)
     return out

@@ -21,13 +21,14 @@ after the loop, from one read of the state; they back-substitute on the
 host, in the working dtype, so their iterates have the bits of a solver
 that keeps H on the host (at tol 1e-10 the card's sharded 1024^2 count
 sits at the f64 floor and follows those bits). The fixed-budget loops
-(`gmres_fixed`, `cg_fixed`: the inner solves of the preconditioners) read
-nothing back: they run all `maxiter` steps, a step after `done` changes
-nothing (every update is masked), and they back-substitute on the device,
-so their count is an early-exit run's and their x is its x to rounding.
-That is `lax.while_loop` with its static bound minus the early exit, which
-a CUDA graph (`solvers/graphs.py`) cannot take; the masked steps are real
-device work.
+(`gmres_fixed`, `cg_fixed`: the inner solves of the preconditioners) are
+`lax.while_loop` with its static bound: `solvers/graphs.loop` steps them
+while ~done & (j < m), through a CUDA-graph IF node a step under capture,
+by a read of `done` a step when eager, or all `maxiter` steps masked
+inside `graphs.masked()`. A step after `done` changes nothing (every
+update is masked, in place), and they back-substitute on the device, so
+x, the count and the census are the same bits in all three ways, the
+count is an early-exit run's and x is its x to rounding.
 
 Vectors may have any shape (flat or stacked grid fields); the basis adds a
 leading axis. One iteration is `_arnoldi_step` on an `ArnoldiState`, so
@@ -50,6 +51,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from mpbp_tpu_torch.solvers import graphs
 
 
 class KrylovResult(NamedTuple):
@@ -103,8 +106,8 @@ def _vnorm(a, group=None):
 
 
 def _put(dst: torch.Tensor, new: torch.Tensor, live) -> None:
-    """dst <- new where `live` (a () bool tensor; None: always)."""
-    dst.copy_(new if live is None else torch.where(live, new, dst))
+    """dst <- new where `live` (a () bool tensor), in place."""
+    torch.where(live, new, dst, out=dst)
 
 
 @dataclasses.dataclass(eq=False)
@@ -113,7 +116,9 @@ class ArnoldiState:
     `ArnoldiState`). Resuming with the same (matvec, b, x0, maxiter, M)
     continues the identical Krylov recurrence. Every field is a tensor on
     the vectors' device, in the working dtype (j: int64, done/lost: bool).
-    A step advances the state in place."""
+    A step advances the state in place: every field stays the tensor
+    `_arnoldi_init` made (an IF body that did not run must leave the
+    state readable, `solvers/graphs.py`)."""
 
     j: torch.Tensor       # () iterations completed
     V: torch.Tensor       # (m+1, N) orthonormal basis
@@ -272,8 +277,8 @@ def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
     _put(state.hist[s + 1], res, keep)
     state.j += keep.to(torch.int64)
     met = (res / safe_bnorm < tol) | breakdown
-    state.done = state.done | lost | (keep & met)
-    state.lost = state.lost | lost
+    state.done |= lost | (keep & met)
+    state.lost |= lost
 
 
 def _device_solution(state: ArnoldiState, x0: torch.Tensor, M: Callable,
@@ -351,13 +356,13 @@ def _cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
 def _fixed_cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
                  tol: float, m: int, M: Callable, use_z: bool,
                  orthog: str = "cgs2") -> DeviceResult:
-    """One (F)GMRES cycle of exactly m masked steps: no host read."""
+    """One (F)GMRES cycle of at most m steps (`graphs.loop`), x
+    back-substituted on the device."""
     _check_orthog(orthog)
     safe_bnorm = _safe_bnorm(b)
     state = _arnoldi_init(matvec, b, x0, tol, m, use_z, safe_bnorm)
-    for s in range(m):
-        _arnoldi_step(state, matvec, M, b.shape, s, tol, use_z, orthog,
-                      safe_bnorm)
+    graphs.loop(state.done, state.j, m, lambda s: _arnoldi_step(
+        state, matvec, M, b.shape, s, tol, use_z, orthog, safe_bnorm))
     return DeviceResult(_device_solution(state, x0, M, use_z), state.j)
 
 
@@ -442,8 +447,8 @@ def gmres_fixed(matvec: Callable, b: torch.Tensor,
                 x0: torch.Tensor | None = None, tol: float = 1e-8,
                 maxiter: int = 100, M: Callable | None = None,
                 orthog: str = "cgs2") -> DeviceResult:
-    """`gmres` (one cycle) as a fixed budget of maxiter steps that reads
-    nothing back: x and the on-device count of an early-exit run."""
+    """`gmres` (one cycle) as a fixed budget of maxiter steps
+    (`graphs.loop`): x and the on-device count of an early-exit run."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     M = _identity if M is None else M
@@ -504,13 +509,12 @@ def _restarted(matvec, b, x0, tol, maxiter, restart, M, use_z, orthog,
 
 @dataclasses.dataclass(eq=False)
 class _CGState:
-    """The CG carry (the JAX package's `_cg_jit` loop state), on the
-    device."""
+    """The CG carry (the JAX package's `_cg_jit` loop state, z apart: no
+    step reads it), on the device. A step writes every field in place."""
 
     j: torch.Tensor
     x: torch.Tensor
     r: torch.Tensor
-    z: torch.Tensor
     p: torch.Tensor
     rz: torch.Tensor
     rn: torch.Tensor
@@ -526,7 +530,7 @@ def _cg_init(matvec, b, x0, tol, maxiter, M, safe_bnorm, group) -> _CGState:
                       device=b.device)
     hist[0] = rn
     return _CGState(torch.zeros((), dtype=torch.int64, device=b.device),
-                    x0, r, z, z, _vdot(r, z, group), rn, hist,
+                    x0.clone(), r, z.clone(), _vdot(r, z, group), rn, hist,
                     rn / safe_bnorm < tol)
 
 
@@ -545,16 +549,11 @@ def _cg_step(st: _CGState, matvec, M, s: int, tol, safe_bnorm,
     beta = torch.where(st.rz != 0, rz / st.rz, zero)
     p = z + beta * st.p
     rn = _vnorm(r, group)
-
-    def take(new, old):
-        return torch.where(live, new, old)
-
-    st.x, st.r, st.z, st.p = (take(x, st.x), take(r, st.r), take(z, st.z),
-                              take(p, st.p))
-    st.rz, st.rn = take(rz, st.rz), take(rn, st.rn)
-    _put(st.hist[s + 1], rn, live)
+    for dst, new in ((st.x, x), (st.r, r), (st.p, p), (st.rz, rz),
+                     (st.rn, rn), (st.hist[s + 1], rn)):
+        _put(dst, new, live)
     st.j += live.to(torch.int64)
-    st.done = st.done | (live & (rn / safe_bnorm < tol))
+    st.done |= live & (rn / safe_bnorm < tol)
 
 
 def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
@@ -579,14 +578,14 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
 def cg_fixed(matvec: Callable, b: torch.Tensor,
              x0: torch.Tensor | None = None, tol: float = 1e-8,
              maxiter: int = 200, M: Callable = _identity) -> DeviceResult:
-    """`cg` as a fixed budget of maxiter masked steps that reads nothing
-    back: x and the on-device count of an early-exit run."""
+    """`cg` as a fixed budget of maxiter steps (`graphs.loop`): x and the
+    on-device count of an early-exit run."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     safe_bnorm = _safe_bnorm(b)
     st = _cg_init(matvec, b, x0, tol, maxiter, M, safe_bnorm, None)
-    for s in range(maxiter):
-        _cg_step(st, matvec, M, s, tol, safe_bnorm, None)
+    graphs.loop(st.done, st.j, maxiter, lambda s: _cg_step(
+        st, matvec, M, s, tol, safe_bnorm, None))
     return DeviceResult(st.x, st.j)
 
 

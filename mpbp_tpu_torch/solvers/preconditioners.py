@@ -112,16 +112,17 @@ def _stencil_matvec(A_stencil: StencilOperator, dtype) -> Callable:
 @dataclasses.dataclass(eq=False)
 class KrylovInner:
     """Fixed-budget inner Krylov solve (matrix-free). The outer driver is
-    flexible GMRES, so a varying inner solve is legal. It runs all
-    `maxiter` steps of `gmres_fixed` / `cg_fixed` and reads nothing back
-    (steps past convergence change nothing), so a CUDA graph can replay it
-    (`solvers/graphs.py`); the JAX package's, under jit, exits early on
-    the device.
+    flexible GMRES, so a varying inner solve is legal. It runs
+    `gmres_fixed` / `cg_fixed`, a budget of `maxiter` steps that stops at
+    convergence (`solvers/graphs.loop`): on the device inside a CUDA graph
+    (an IF node a step), by a read of `done` a step when eager, as the
+    JAX package's exits under jit and under disable_jit.
 
     `census`, where set to a (maxiter+1,) int64 tensor on the solve's
     device, counts each call's converged iterations: call c adds one at
     index iters_c, on the device (one launch a call, captured with the
-    rest). maxiter - iters_c steps of that call were masked."""
+    rest). maxiter - iters_c budgeted steps of that call did not run
+    (inside `graphs.masked()`: ran masked)."""
 
     matvec: Callable
     tol: float = 1e-6

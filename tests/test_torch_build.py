@@ -25,9 +25,9 @@ def sources(tmp_path, monkeypatch):
 
 def test_each_source_has_its_own_library(sources):
     stems = set(_build.SOURCES)
-    assert stems == {"fused_stencil", "sparse_spmv"}
+    assert stems == {"fused_stencil", "sparse_spmv", "graph_cond"}
     paths = {stem: _build.library_path(stem) for stem in stems}
-    assert len(set(paths.values())) == 2
+    assert len(set(paths.values())) == 3
     for stem, path in paths.items():
         assert path.name.startswith(f"lib{stem}_") and path.suffix == ".so"
     with pytest.raises(ValueError):

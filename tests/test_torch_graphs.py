@@ -8,7 +8,17 @@
   (c) the fixed-budget cycle against the early-exit one;
   (d) finite x after an exact breakdown and after an F1 lost column;
   (e) on the card (`gpu`, skipped here): graph replay bit-equal to the
-      eager apply, and an apply under sync-debug mode "error".
+      eager apply, and an apply under sync-debug mode "error";
+  (f) the ways `graphs.loop` runs a fixed budget: the eager early exit
+      bit-equal to the masked budget, every state tensor written in
+      place, the calls of an early-exit solve those of its steps taken,
+      a count read settling the launches replays left on the device; on
+      the card, the IF-node replay bit-equal to the eager apply and to
+      the masked replay, with the eager apply's K1 count.
+
+The tests of (a) run the masked budget (`graphs.masked()`): it is the
+captured arithmetic without the IF nodes, and the eager early exit reads
+`done` on the host once a step by design.
 
 JAX is imported inside the tests that compare with it, so the `gpu` tests
 also run where JAX is not installed:
@@ -18,6 +28,7 @@ also run where JAX is not installed:
 """
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -28,7 +39,7 @@ from mpbp_tpu_torch.drivers import (make_preconditioner,
                                     make_preconditioner_mixed)
 from mpbp_tpu_torch.models.fused import make_f_apply
 from mpbp_tpu_torch.models.multiphase import make_multiphase_operator
-from mpbp_tpu_torch.ops import cuda_stencil
+from mpbp_tpu_torch.ops import _build, cuda_stencil
 from mpbp_tpu_torch.solvers import gmres as krylov
 from mpbp_tpu_torch.solvers import graphs
 from mpbp_tpu_torch.solvers.multigrid import MGPressureSolver
@@ -113,7 +124,7 @@ def test_lsc_mg_full_apply_reads_no_host(precision):
         M = make_preconditioner_mixed(op64, op32, "lsc_mg_full")
     v = torch.as_tensor(np.random.default_rng(0).normal(size=5 * 16 * 16))
     want = M(v)
-    with no_host_read():
+    with graphs.masked(), no_host_read():
         got = M(v)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
 
@@ -137,7 +148,7 @@ def test_krylov_inner_reads_no_host(method):
         v = torch.as_tensor(rng.normal(size=16 * 16))
         v = v - v.mean()
     inner.census = torch.zeros(inner.maxiter + 1, dtype=torch.int64)
-    with no_host_read():
+    with graphs.masked(), no_host_read():
         x = inner(v)
     assert bool(torch.isfinite(x).all())
     assert int(inner.census.sum()) == 1
@@ -146,6 +157,10 @@ def test_krylov_inner_reads_no_host(method):
 @pytest.mark.parametrize("maxiter", [64, 10], ids=["converges", "budget"])
 def test_gmres_fixed_matches_jax(maxiter):
     """(b) x within 1e-10 of max|x| of JAX's gmres, and JAX's count."""
+    _gmres_vs_jax(maxiter)
+
+
+def _gmres_vs_jax(maxiter):
     import jax.numpy as jnp
     from mpbp_tpu.solvers import gmres as jax_krylov
 
@@ -166,6 +181,10 @@ def test_gmres_fixed_matches_jax(maxiter):
 @pytest.mark.parametrize("maxiter", [200, 10], ids=["converges", "budget"])
 def test_cg_fixed_matches_jax(maxiter):
     """(b) x within 1e-10 of max|x| of JAX's cg, and JAX's count."""
+    _cg_vs_jax(maxiter)
+
+
+def _cg_vs_jax(maxiter):
     import jax.numpy as jnp
     from mpbp_tpu.solvers import gmres as jax_krylov
 
@@ -297,8 +316,179 @@ def test_every_graphed_kind_reads_no_host(kind):
     op, _ = operators(8)
     M = make_preconditioner(op, kind, inner_iters=20)
     v = torch.as_tensor(np.random.default_rng(6).normal(size=5 * 64))
-    with no_host_read():
+    with graphs.masked(), no_host_read():
         assert M(v).shape == v.shape
+
+
+# --------------------------------------------------------------------------
+# (f) the ways of graphs.loop (the card's IF nodes at the end)
+# --------------------------------------------------------------------------
+BUDGETS = {"gmres": (64, 10), "cg": (200, 10)}
+
+
+def _fixed_solve(method, maxiter, census=None, matvec_calls=None,
+                 M_calls=None):
+    """A seeded fixed-budget solve through KrylovInner (`census`) or
+    gmres_fixed / cg_fixed; the calls of matvec and M are appended to the
+    given lists."""
+    A, b = nonsymmetric(2) if method == "gmres" else spd()
+    At, bt = torch.as_tensor(A), torch.as_tensor(b)
+    Mt = torch.as_tensor(1.0 / np.diag(A))
+
+    def mv(v):
+        if matvec_calls is not None:
+            matvec_calls.append(1)
+        return At @ v
+
+    def M(v):
+        if M_calls is not None:
+            M_calls.append(1)
+        return Mt * v
+
+    if census is not None:
+        inner = KrylovInner(mv, tol=1e-10, maxiter=maxiter, method=method,
+                            M=M, census=census)
+        return inner(bt), None
+    fixed = krylov.gmres_fixed if method == "gmres" else krylov.cg_fixed
+    res = fixed(mv, bt, tol=1e-10, maxiter=maxiter, M=M)
+    return res.x, int(res.iters)
+
+
+@pytest.mark.parametrize("budget", [0, 1], ids=["converges", "budget"])
+@pytest.mark.parametrize("via", ["fixed", "KrylovInner"])
+@pytest.mark.parametrize("method", ["gmres", "cg"])
+def test_early_exit_is_the_masked_budget(method, via, budget):
+    """(f) The eager loop stops at done; x, the count and the census are
+    the masked budget's bits (tolerance 0)."""
+    maxiter = BUDGETS[method][budget]
+    runs = []
+    for mode in (contextlib.nullcontext(), graphs.masked()):
+        census = (torch.zeros(maxiter + 1, dtype=torch.int64)
+                  if via == "KrylovInner" else None)
+        with mode:
+            x, iters = _fixed_solve(method, maxiter, census)
+        runs.append((x, iters, census))
+    (x0, it0, c0), (x1, it1, c1) = runs
+    assert torch.equal(x0, x1) and it0 == it1
+    if via == "KrylovInner":
+        assert torch.equal(c0, c1) and int(c0.sum()) == 1
+        assert (int(c0.argmax()) < maxiter) == (budget == 0)
+
+
+@pytest.mark.parametrize("budget", [0, 1], ids=["converges", "budget"])
+@pytest.mark.parametrize("method", ["gmres", "cg"])
+def test_masked_budget_matches_jax(method, budget):
+    """(f) (b) inside graphs.masked(): JAX's count, x within 1e-10 of
+    max|x| of JAX's."""
+    with graphs.masked():
+        check = _gmres_vs_jax if method == "gmres" else _cg_vs_jax
+        check(BUDGETS[method][budget])
+
+
+def _tensors(state):
+    return {f.name: getattr(state, f.name)
+            for f in dataclasses.fields(state)}
+
+
+@pytest.mark.parametrize("method", ["gmres", "cg"])
+def test_a_step_writes_the_state_in_place(method):
+    """(f) trap 1 of the IF node: after live steps and a masked step past
+    done, every state attribute is the tensor object it was before (a
+    skipped body would leave a rebound one unwritten)."""
+    A, b = nonsymmetric(3) if method == "gmres" else spd(2)
+    At, bt = torch.as_tensor(A), torch.as_tensor(b)
+    mv, x0 = (lambda v: At @ v), torch.zeros_like(bt)
+    bn = krylov._safe_bnorm(bt)
+    if method == "gmres":
+        st = krylov._arnoldi_init(mv, bt, x0, 1e-2, N, False, bn)
+
+        def step(s):
+            krylov._arnoldi_step(st, mv, krylov._identity, bt.shape, s,
+                                 1e-2, False, "cgs2", bn)
+    else:
+        st = krylov._cg_init(mv, bt, x0, 1e-2, N, krylov._identity, bn,
+                             None)
+
+        def step(s):
+            krylov._cg_step(st, mv, krylov._identity, s, 1e-2, bn, None)
+    before = _tensors(st)
+    s = 0
+    while not bool(st.done):
+        step(s)
+        s += 1
+    step(s)                                   # masked: past done
+    assert 0 < s < N and int(st.j) == s
+    after = _tensors(st)
+    assert all(after[k] is before[k] for k in before), \
+        [k for k in before if after[k] is not before[k]]
+
+
+@pytest.mark.parametrize("method", ["gmres", "cg"])
+def test_early_exit_calls_are_the_steps_taken(method):
+    """(f) trap 4: an eager early-exit solve calls the matvec once for its
+    residual and once a step taken, and M once a step (and once more for
+    gmres's solution, or cg's start), where the masked budget calls them
+    for all maxiter steps; the counts of a step body times the steps."""
+    maxiter = BUDGETS[method][0]
+    calls = {}
+    for label, mode in (("eager", contextlib.nullcontext()),
+                        ("masked", graphs.masked())):
+        mv, M = [], []
+        with mode:
+            _, iters = _fixed_solve(method, maxiter, matvec_calls=mv,
+                                    M_calls=M)
+        calls[label] = (len(mv), len(M))
+    assert 0 < iters < maxiter
+    assert calls["eager"] == (1 + iters, iters + 1)
+    assert calls["masked"] == (1 + maxiter, maxiter + 1)
+
+
+def test_early_exit_counts_a_lost_step():
+    """(f) F1 in the eager loop: the step that loses its column runs (and
+    is not counted in iters), and the loop stops after it."""
+    rng = np.random.default_rng(4)
+    A = np.diag(np.arange(1.0, 13.0)) + rng.normal(size=(12, 12)) / 4
+    At, bt = torch.as_tensor(A), torch.as_tensor(rng.normal(size=12))
+    first, steps = [], []
+
+    def M(v):
+        steps.append(1)
+        if not first:
+            first.append(v.clone())
+            return v
+        return 3.0 * first[0]
+
+    res = krylov._fixed_cycle(lambda v: At @ v, bt, torch.zeros_like(bt),
+                              1e-8, 8, M, True)
+    assert int(res.iters) == 1 and len(steps) == 2
+
+
+def test_a_count_read_settles_the_deferred_launches(monkeypatch):
+    """A wrapper's `add` settles nothing; the next read of a count runs
+    the deferred settle once (what a replayed graph's IF bodies ran)."""
+    counts = _build.Launches(k=0)
+    settled = []
+
+    def settle():
+        settled.append(1)
+        counts.add("k", 5)
+
+    monkeypatch.setattr(_build, "DEFERRED", [settle])
+    counts.add("k")
+    assert dict.__getitem__(counts, "k") == 1 and not settled
+    assert counts["k"] == 6 and settled == [1]
+    assert dict(counts) == {"k": 6} and settled == [1]
+    _build.DEFERRED.append(settle)
+    counts["k"] = 0                 # a reset settles first, then clears
+    assert counts == {"k": 0} and settled == [1, 1]
+
+
+def test_masked_restores_the_flag():
+    with pytest.raises(RuntimeError):
+        with graphs.masked():
+            assert graphs._masked
+            raise RuntimeError("inside")
+    assert not graphs._masked
 
 
 # --------------------------------------------------------------------------
@@ -357,3 +547,50 @@ def test_graphed_apply_makes_no_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+@pytest.mark.gpu
+def test_if_replay_is_the_eager_and_the_masked_apply(cuda_device):
+    """(f) The n=64 hybrid apply captured with IF nodes and captured as the
+    masked budget: both replays bit-equal to the eager apply; the IF
+    replay counts the eager apply's K1 launches (read after the replay,
+    which settles the bodies' tallies), the masked one more; three
+    replays of each under sync-debug "error"."""
+    M, v = _hybrid_pc(cuda_device, 64)
+
+    def k1(run):
+        before = cuda_stencil.LAUNCHES["f_apply"]
+        out = run(v)
+        torch.cuda.synchronize()
+        return out, cuda_stencil.LAUNCHES["f_apply"] - before
+
+    eager, per_eager = k1(M)
+    with graphs.masked():
+        _, per_masked = k1(M)
+        gm = graphs.GraphedApply(M)
+        gm(v)
+    g = graphs.GraphedApply(M)
+    g(v)
+    (if_out, per_if), (masked_out, per_replay) = k1(g), k1(gm)
+    assert torch.equal(if_out, eager) and torch.equal(masked_out, eager)
+    assert per_if == per_eager < per_masked == per_replay
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [G(v) for G in (g, gm) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, eager) for o in outs)
+
+
+@pytest.mark.gpu
+def test_a_loop_captured_outside_graphed_apply_raises(cuda_device):
+    """The IF node needs GraphedApply's recording: a bare capture of a
+    fixed-budget solve raises instead of running a masked budget."""
+    A = torch.eye(8, dtype=torch.float64, device=cuda_device) * 2
+    b = torch.ones(8, dtype=torch.float64, device=cuda_device)
+    krylov.gmres_fixed(lambda v: A @ v, b, maxiter=4)     # warm
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="GraphedApply"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            krylov.gmres_fixed(lambda v: A @ v, b, maxiter=4)
