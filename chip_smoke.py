@@ -10,9 +10,10 @@ the larger) and, where one PyTorch call computes the same function
 yardstick only, the port never calls it.
   1. device  - a CUDA device is required; prints its name and
                `nvidia-smi --query-gpu=name,power.limit`.
-  2. build   - nvcc builds csrc/fused_stencil.cu and csrc/sparse_spmv.cu
-               for sm_90a, one nvcc per source, while g++ builds the host
-               setup library (native/csparse.cpp), all started together.
+  2. build   - nvcc builds csrc/fused_stencil.cu, csrc/mg_stencil.cu,
+               csrc/sparse_spmv.cu and csrc/graph_cond.cu for sm_90a, one
+               nvcc per source, while g++ builds the host setup library
+               (native/csparse.cpp), all started together.
   3. kernels - K1 (f_apply) at n=8, 50, 512, 1000, 2048 and K2 (a_apply)
                at n=512, 2048 against their plain PyTorch versions, f32
                and f64, on random theta in [0.1, 0.9] and a random state
@@ -51,10 +52,41 @@ yardstick only, the port never calls it.
                seconds, K1/K2 launches, the census and the steps. The six
                solves are held to one count, one x and one census, the IF
                one to the eager one's launches and to no step run past
-               the early exit. Last, the per-op census of one 1024^2 IF
-               replay: every kernel by name, count and device us. The
-               slice (5) and at_scale (22) run with the IF graph, as every
-               CUDA solve of `drivers` and `bench_solve` does.
+               the early exit; the K1 + K11 launches a solve held to K1's
+               count when K1 made the MG's F applies too (K1_BEFORE_K11).
+               Then the A/B of the multigrid kernels K9-K12 in one
+               process: the same IF graph captured inside
+               `cuda_mg.plain()` (the per-op MG code) against the
+               kernels', in turns (plain, kernels, kernels, plain):
+               kernels run, device busy us and wall us of a replay and the
+               warm solve's seconds, held to one x and one count. Then the
+               census by caller: one eager 1024^2 apply with chip_smoke's
+               own torch.profiler ranges around the LSC glue, the F-inner
+               Krylov solve, the velocity MG (smoothing; its face
+               transfers apart) and the pressure MG, plain code against
+               kernels: kernels and device us by region, held to no
+               PyTorch roll/add/sub/mul kernel in the MG regions with the
+               kernels but the pressure solver's mean projection (one
+               `sub` each side of a solve, PyTorch's). Last, the per-op
+               census of one 1024^2 IF replay: every kernel by name,
+               count and device us. The slice (5)
+               and at_scale (22) run with the IF graph, as every CUDA
+               solve of `drivers` and `bench_solve` does.
+ 6b. mg_kernels - K9-K12 (`ops/cuda_mg.py`: the pressure sweep, the
+               residual's restriction and the correction, the velocity
+               sweep and residual, the face transfers) against their
+               plain versions at every level size of the slice's 512^2, 1024^2 and 2048^2 hierarchies
+               (pressure and velocity), f32 and f64, on seeded inputs:
+               each held bit-equal (max|kernel - plain| printed); timed
+               at the finest level (n = 512, 1024, 2048 in f32; 1024 and
+               2048 in f64): device us behind a device sleep and after an
+               L2 flush where the operands fit in L2, the bound (each
+               plane the function needs read once and each output written
+               once at 3.35 TB/s), its share, and the plain version's us;
+               the library time where one PyTorch call computes the same
+               function (K10's correction: a broadcast add on 2x2-blocked
+               views), none for the others. Then the launches of each a
+               512^2 and a 1024^2 solve (from the graphs phase).
   7. layers  - one more solve with synchronized timers around the outer
                matvec, the F and pressure inner solves and the PC apply.
   8. profile - two outer iterations of the warm solve under torch.profiler:
@@ -169,6 +201,7 @@ before the last is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -196,7 +229,8 @@ from mpbp_tpu_torch.models.multiphase import (divergence_operator,
                                               laplacian_operator,
                                               make_multiphase_operator,
                                               operator_from_numpy)
-from mpbp_tpu_torch.ops import _build, cuda_dia, cuda_ell, cuda_stencil, ilu
+from mpbp_tpu_torch.ops import (_build, cuda_dia, cuda_ell, cuda_mg,
+                                cuda_stencil, ilu)
 from mpbp_tpu_torch.ops.cuda_ell import BandedELL
 from mpbp_tpu_torch.ops.dia import DIAMatrix
 from mpbp_tpu_torch.ops.spgemm import lsc_products_device
@@ -208,6 +242,7 @@ from mpbp_tpu_torch.parallel.pallas_sharded import (
 from mpbp_tpu_torch.solvers import eigen
 from mpbp_tpu_torch.solvers import gmres as krylov
 from mpbp_tpu_torch.solvers import graphs
+from mpbp_tpu_torch.solvers import multigrid
 from mpbp_tpu_torch.solvers import preconditioners as pcs
 from mpbp_tpu_torch.solvers.mixed import fgmres_ir
 from mpbp_tpu_torch.solvers.preconditioners import make_lsc_pc_mixed
@@ -220,14 +255,40 @@ SOURCE = {"f_apply": "mpbp_tpu_torch/csrc/fused_stencil.cu",
           "a_apply_staged": "mpbp_tpu_torch/csrc/fused_stencil.cu",
           "dia_spmv": "mpbp_tpu_torch/csrc/sparse_spmv.cu",
           "ell_spmv": "mpbp_tpu_torch/csrc/sparse_spmv.cu",
-          "ell_spmm": "mpbp_tpu_torch/csrc/sparse_spmv.cu"}
+          "ell_spmm": "mpbp_tpu_torch/csrc/sparse_spmv.cu",
+          **{k: "mpbp_tpu_torch/csrc/mg_stencil.cu"
+             for k in ("p_sweep", "p_restrict", "p_correct",
+                       "vel_restrict", "vel_prolong")},
+          "f_sweep": "mpbp_tpu_torch/csrc/fused_stencil.cu",
+          "f_residual": "mpbp_tpu_torch/csrc/fused_stencil.cu"}
 REPLACES = {"f_apply": "mpbp_tpu/ops/pallas_stencil.py:518",
             "a_apply": "mpbp_tpu/ops/pallas_stencil.py:490",
             "a_apply_band": "mpbp_tpu/ops/pallas_stencil.py:76",
             "a_apply_staged": "mpbp_tpu/ops/pallas_stencil.py:175",
             "dia_spmv": "mpbp_tpu/ops/pallas_dia.py:89 (K5) and :256 (K6)",
             "ell_spmv": "mpbp_tpu/ops/pallas_ell.py:173",
-            "ell_spmm": "mpbp_tpu/ops/pallas_ell.py:241"}
+            "ell_spmm": "mpbp_tpu/ops/pallas_ell.py:241",
+            # K9-K12 replace XLA's fusions of the JAX multigrid under jit
+            # (no pl.pallas_call)
+            "p_sweep": "mpbp_tpu/solvers/multigrid.py:159 (_smooth's "
+                       "fori_loop body, an XLA fusion)",
+            "p_restrict": "mpbp_tpu/solvers/multigrid.py:177-178 (v_cycle's "
+                          "residual and restrict_cell, an XLA fusion)",
+            "p_correct": "mpbp_tpu/solvers/multigrid.py:184 (x + "
+                         "prolong_cell(ec), an XLA fusion)",
+            "f_sweep": "mpbp_tpu/solvers/multigrid.py:368 (_vel_smooth's "
+                       "fori_loop body, an XLA fusion)",
+            "f_residual": "mpbp_tpu/solvers/multigrid.py:389-391 "
+                          "(vel_v_cycle's residual, an XLA fusion)",
+            "vel_restrict": "mpbp_tpu/solvers/multigrid.py:269 "
+                            "(_restrict_vel, an XLA fusion)",
+            "vel_prolong": "mpbp_tpu/solvers/multigrid.py:274,395-396 "
+                           "(_prolong_vel and the correction, an XLA "
+                           "fusion)"}
+# K9-K12 by entry point (ops/cuda_mg.py)
+MG_KERNEL = {"p_sweep": "K9", "p_restrict": "K10", "p_correct": "K10",
+             "f_sweep": "K11", "f_residual": "K11",
+             "vel_restrict": "K12", "vel_prolong": "K12"}
 NF = {"f_apply": 4, "a_apply": 5}
 # kernels phase: K1 at sizes that are no multiple of anything (8, 50, 1000)
 # and at the main path's 512 and 2048; K2 at 512 and 2048; the library
@@ -254,6 +315,29 @@ SLICE_ITERS_EAGER, SLICE_L2_EAGER = 18, 2.303903e-5
 # graphs: the slice's hybrid PC apply and warm solve, eager against graph
 # replay, at these sizes
 GRAPHS_N = (512, 1024)
+# K1 launches a solve at GRAPHS_N when K1 made the MG's F applies too
+# (the per-op MG code, eager and IF graph alike, on an H100): since K11
+# took those applies, K1 + K11 launch as many
+K1_BEFORE_K11 = {512: 14575, 1024: 16198}
+# the graphs phase's A/B of the MG kernels against the per-op MG code
+# (`cuda_mg.plain()`), one graph each, in turns
+MG_AB_TURNS = ("plain", "kernels", "kernels", "plain")
+# the census by caller: chip_smoke's profiler ranges around the PC's
+# parts (outermost first); the MG ones are held to no PyTorch per-term
+# kernel (roll, add/sub, mul: their kernels' names) with the kernels, but
+# the pressure solver's mean projection: PROJECTION_SUBS a solve
+REGIONS = ("lsc_glue", "f_inner_krylov", "velocity_mg_smoothing",
+           "velocity_transfers", "pressure_mg")
+MG_REGIONS = REGIONS[2:]
+PER_TERM_KERNELS = ("roll_cuda_kernel", "CUDAFunctor_add", "MulFunctor")
+PROJECTION_SUBS = 2          # b - mean(b) and x - mean(x)
+# mg_kernels: K9-K12 against their plain versions at every level of the
+# slice's hierarchies at these n, timed at the finest level where
+# (n, dtype) is listed
+MG_HIER_N = (512, 1024, 2048)
+MG_TIMED = {(512, torch.float32), (1024, torch.float32),
+            (2048, torch.float32), (1024, torch.float64),
+            (2048, torch.float64)}
 # the slice's PC without the f64 refinement pass around each f32 inner
 # solve (make_lsc_pc_mixed(refine_inners=False)): the f32 inner noise
 # floors the outer FGMRES far above tol (the JAX package's docstring:
@@ -626,13 +710,13 @@ def phase_mms(dev) -> None:
 
 
 def run_slice(dev) -> tuple:
-    for k in cuda_stencil.LAUNCHES:
-        cuda_stencil.LAUNCHES[k] = 0
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rep = solve_multiphase(**SLICE, device=dev)
     torch.cuda.synchronize()
-    return rep, time.perf_counter() - t0, dict(cuda_stencil.LAUNCHES)
+    return rep, time.perf_counter() - t0, {**dict(cuda_stencil.LAUNCHES),
+                                           **dict(cuda_mg.LAUNCHES)}
 
 
 def phase_slice(dev) -> dict:
@@ -659,7 +743,7 @@ def phase_slice(dev) -> dict:
         check(tuple(rep.x.shape) == (5 * n * n,)
               and bool(torch.isfinite(rep.x).all()),
               "solution has the wrong shape or non-finite values")
-        for k in ("f_apply", "a_apply"):
+        for k in ("f_apply", "a_apply", *cuda_mg.LAUNCHES):
             check(launches[k] > 0, f"kernel {k} was not launched by the solve")
         runs[label] = dict(seconds=secs, launches=launches, iters=rep.iters)
     runs["no_refine"] = _slice_no_refine(dev, runs["warm"]["iters"])
@@ -804,8 +888,9 @@ def _graphs_solve(way: str, G, mv, b_vec, u_vec, op64) -> dict:
     return dict(iters=res.iters, converged=res.converged, seconds=secs,
                 x=res.x, l2=norms_report(res.x, u_vec, op64.grid.dx,
                                          op64.grid.dy)["l2"],
-                launches={k: cuda_stencil.LAUNCHES[k]
-                          for k in ("f_apply", "a_apply")})
+                launches={**{k: cuda_stencil.LAUNCHES[k]
+                             for k in ("f_apply", "a_apply")},
+                          **dict(cuda_mg.LAUNCHES)})
 
 
 def _op_census(phase: str, G, v, top: int = 30) -> list:
@@ -937,19 +1022,308 @@ def phase_graphs(dev) -> dict:
                           f"F-inner steps; the eager one launched "
                           f"{first['launches']} and needs "
                           f"{r['f_steps_needed']}")
+        k1_k11 = {way: rows[0]["launches"]["f_apply"]
+                  + rows[0]["launches"]["f_sweep"]
+                  + rows[0]["launches"]["f_residual"]
+                  for way, rows in solves.items()}
+        say("graphs", n=n, k1_plus_k11_a_solve=json.dumps(k1_k11),
+            k1_before_k11=K1_BEFORE_K11[n])
+        check(k1_k11["eager"] == k1_k11["if"] == K1_BEFORE_K11[n],
+              f"graphs n={n}: K1 + K11 launched {k1_k11} a solve, K1 alone "
+              f"{K1_BEFORE_K11[n]} before K11")
+        ab = _mg_ab(n, M, G, v, mv, b_vec, u_vec, op64, first)
         for rows in solves.values():
             for r in rows:
                 r.pop("x")
-        census = (_op_census("graphs_census", G, v)
-                  if n == GRAPHS_N[-1] else None)
+        census = by_region = None
+        if n == GRAPHS_N[-1]:
+            by_region = _census_by_region(op64, f32, p32, v)
+            census = _op_census("graphs_census", G, v)
         out[n] = dict(capture_s=captured, applies=applies, solves=solves,
                       f_inner_budget=budget, if_bodies=G.gated_steps,
+                      k1_plus_k11=k1_k11, mg_ab=ab, by_region=by_region,
                       op_census=census)
         del M, G, Gm, ways, f32, p32, op64, eager, replayed, three
     _free_device_memory()
     emit("graphs", seconds=time.perf_counter() - t_phase, **{
         str(n): {k: v for k, v in r.items()} for n, r in out.items()})
     return out
+
+
+def _plain(call):
+    """call() with the MG's per-op code in place of K9-K12."""
+    with cuda_mg.plain():
+        return call()
+
+
+def _mg_ab(n: int, M, G, v, mv, b_vec, u_vec, op64, eager_solve) -> dict:
+    """The A/B of K9-K12: an IF graph of M captured inside
+    `cuda_mg.plain()` (the per-op MG code) against G (the kernels), in
+    MG_AB_TURNS: a replay's host, wall and device busy us, kernels run
+    (profiler) and launches, then the warm solve. The plain replay is held
+    bit-equal to G's and every solve to the eager one's x and count."""
+    Gp = graphs.GraphedApply(M)
+    want = G(v)
+    with cuda_mg.plain():
+        Gp(v)                                   # capture
+    check(torch.equal(Gp(v), want),
+          f"graphs n={n}: the plain-MG replay differs from the kernels'")
+    ways = {"plain": Gp, "kernels": G}
+    rows = {}
+    for way in MG_AB_TURNS:
+        first = way not in rows
+        _reset_counts()
+        r = _apply_profile(ways[way], v, busy=first)
+        s = _graphs_solve("if", ways[way], mv, b_vec, u_vec, op64)
+        check(s["iters"] == eager_solve["iters"]
+              and torch.equal(s["x"], eager_solve["x"]),
+              f"graphs n={n}: the {way} MG solve is not the eager one "
+              f"({s['iters']} against {eager_solve['iters']} iterations, "
+              "or another x)")
+        r.update(solve_s=s["seconds"], solve_launches=s["launches"])
+        rows.setdefault(way, []).append(r)
+        say("graphs", n=n, mg_ab=way, **{
+            k: (json.dumps(x) if isinstance(x, dict) else f"{x:.4f}"
+                if k == "solve_s" else f"{x:.1f}" if isinstance(x, float)
+                else x) for k, x in r.items()})
+    k1 = {way: rs[0]["solve_launches"]["f_apply"]
+          + rs[0]["solve_launches"]["f_sweep"]
+          + rs[0]["solve_launches"]["f_residual"] for way, rs in rows.items()}
+    check(k1["plain"] == k1["kernels"],
+          f"graphs n={n}: K1 + K11 a solve differ, plain and kernels {k1}")
+    del Gp
+    return rows
+
+
+def _regioned(label: str, fn):
+    """fn inside a torch.profiler range named `label`."""
+    def run(*args):
+        with torch.profiler.record_function(label):
+            return fn(*args)
+    return run
+
+
+@contextlib.contextmanager
+def _transfer_regions():
+    """The velocity face transfers (K12's wrappers, which the velocity MG
+    calls through the module) inside the velocity_transfers range."""
+    saved = cuda_mg.vel_restrict, cuda_mg.vel_prolong
+    cuda_mg.vel_restrict, cuda_mg.vel_prolong = (
+        _regioned("velocity_transfers", f) for f in saved)
+    try:
+        yield
+    finally:
+        cuda_mg.vel_restrict, cuda_mg.vel_prolong = saved
+
+
+def _region_census(run) -> dict:
+    """One run() under torch.profiler: each device activity (kernel, copy,
+    set) by the innermost of REGIONS whose host range holds the runtime
+    call that launched it (matched by correlation id; else "outside"): its
+    count, device us and names. Time, not the op tree, places a launch:
+    the kernels of this repo are launched through ctypes, from no
+    PyTorch op."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events
+                    if e.device_type == DeviceType.CPU and e.name in REGIONS)
+    starts = [r[0] for r in ranges]
+    # CUDA runtime and driver calls (cudaLaunchKernel, cuLaunchKernel,
+    # cudaMemsetAsync, ...) by correlation id
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith("cu")}
+
+    def region_at(t: float) -> str:
+        i = bisect.bisect_right(starts, t)
+        while i:
+            i -= 1
+            if ranges[i][1] >= t:           # the latest-starting range
+                return ranges[i][2]         # holding t is the innermost
+        return "outside"
+
+    by = {r: dict(kernels=0, device_us=0.0, names={})
+          for r in (*REGIONS, "outside", "unmatched")}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in REGIONS:
+            continue                        # (the ranges' device marks)
+        t = launched.get(e.id)
+        row = by["unmatched" if t is None else region_at(t)]
+        row["kernels"] += 1
+        row["device_us"] += e.time_range.end - e.time_range.start
+        row["names"][e.name] = row["names"].get(e.name, 0) + 1
+    for row in by.values():
+        row["per_term"] = sum(c for name, c in row["names"].items()
+                              if any(p in name for p in PER_TERM_KERNELS))
+    return by
+
+
+def _census_by_region(op64, f32, p32, v) -> dict:
+    """One eager apply of the slice's PC with chip_smoke's ranges around
+    its parts (REGIONS), plain MG code against K9-K12: kernels, device us
+    and PyTorch per-term kernels by region. Held: none of the latter in
+    the MG regions with the kernels but the mean projection's
+    PROJECTION_SUBS a pressure-MG solve, more with the plain code (the
+    names are right)."""
+    f_ranged = dataclasses.replace(
+        f32, M=_regioned("velocity_mg_smoothing", f32.M))
+    M = _regioned("lsc_glue", make_lsc_pc_mixed(
+        op64, _regioned("f_inner_krylov", f_ranged),
+        _regioned("pressure_mg", p32)))
+    solves = {}
+    solver_call = multigrid.MGPressureSolver.__call__
+
+    def counted(self, b):
+        solves["pressure_mg"] += 1
+        return solver_call(self, b)
+
+    def run():                  # counts the pressure-MG solves of one apply
+        solves["pressure_mg"] = 0
+        return M(v)
+
+    out = {}
+    for way in ("plain", "kernels"):
+        multigrid.MGPressureSolver.__call__ = counted
+        try:
+            with _transfer_regions(), (cuda_mg.plain() if way == "plain"
+                                       else contextlib.nullcontext()):
+                out[way] = by = _region_census(run)
+        finally:
+            multigrid.MGPressureSolver.__call__ = solver_call
+        for region, row in by.items():
+            top = sorted(row["names"].items(), key=lambda kv: -kv[1])[:4]
+            say("graphs_by_region", n=int(round((v.numel() / 5) ** 0.5)),
+                mg=way, region=region, kernels=row["kernels"],
+                device_us=f"{row['device_us']:.1f}",
+                per_term_kernels=row["per_term"],
+                top=json.dumps([(name[:60], c) for name, c in top]))
+            row["names"] = dict(top)
+    check(solves["pressure_mg"] > 0, "census by region: no pressure-MG solve")
+    say("graphs_by_region", pressure_mg_solves=solves["pressure_mg"],
+        projection_subs_each=PROJECTION_SUBS)
+    for region in MG_REGIONS:
+        allowed = (PROJECTION_SUBS * solves["pressure_mg"]
+                   if region == "pressure_mg" else 0)
+        check(out["kernels"][region]["per_term"] == allowed,
+              f"census by region: {out['kernels'][region]['per_term']} "
+              f"PyTorch roll/add/sub/mul kernels in {region} with K9-K12 "
+              f"(the mean projection's: {allowed})")
+        check(out["kernels"][region]["kernels"] > 0,
+              f"census by region: no kernel placed in {region}")
+    for way, by in out.items():
+        check(by["unmatched"]["kernels"] == 0,
+              f"census by region ({way}): {by['unmatched']['kernels']} "
+              "device activities without their runtime call")
+    check(out["plain"]["pressure_mg"]["per_term"] > 0,
+          "census by region: no per-term kernel found in the plain "
+          "pressure MG (the kernel names in PER_TERM_KERNELS are wrong)")
+    return out
+
+
+def _mg_calls(plevels, vlevels, dtype, rng) -> list:
+    """(name, n, call, elements, operations, library) of every K9-K12
+    wrapper at each smoothing level of a pressure and a velocity hierarchy,
+    on seeded inputs. `elements` counts what the function must move (each
+    input it needs read once, each output written once; the face
+    restriction needs half of the fine values), `operations` what it
+    computes, `library` the one PyTorch call that computes the same
+    function, or None where there is none: K10's correction is one
+    broadcast add on 2x2-blocked views."""
+    dev = plevels[0].diag.device
+
+    def r(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=dtype,
+                               device=dev)
+
+    out = []
+    for lv in plevels[:-1]:
+        n, f, k = lv.n, lv.flux, len(lv.flux.offsets)
+        x, b, ec = r(n, n), r(n, n), r(n // 2, n // 2)
+        nn = n * n
+        out += [
+            ("p_sweep", n, lambda x=x, b=b, f=f, lv=lv: cuda_mg.p_sweep(
+                x, b, f.rowsum, f.planes, f.offsets, lv.inv_d),
+             (5 + k) * nn, (3 * k + 4) * nn, None),
+            ("p_restrict", n, lambda x=x, b=b, f=f: cuda_mg.p_restrict(
+                x, b, f.rowsum, f.planes, f.offsets),
+             (3 + k) * nn + nn // 4, (3 * k + 3) * nn, None),
+            ("p_correct", n, lambda x=x, ec=ec: cuda_mg.p_correct(x, ec),
+             2 * nn + nn // 4, nn,
+             lambda x=x, ec=ec, h=n // 2: torch.add(
+                 x.view(h, 2, h, 2), ec.view(h, 1, h, 1)))]
+    for lv in vlevels[:-1]:
+        n, nn, f = lv.n, lv.n * lv.n, lv.flux
+        x, b, ec = r(4, n, n), r(4, n, n), r(4, n // 2, n // 2)
+        out += [
+            ("f_sweep", n, lambda x=x, b=b, f=f, lv=lv: cuda_mg.f_sweep(
+                f.tn, f.wnx, f.wny, x, b, lv.inv_d, f.params, f.dx, f.dy),
+             19 * nn, (FLOP_PER_POINT[4] + 12) * nn, None),
+            ("f_residual", n, lambda x=x, b=b, f=f: cuda_mg.f_residual(
+                f.tn, f.wnx, f.wny, x, b, f.params, f.dx, f.dy),
+             15 * nn, (FLOP_PER_POINT[4] + 4) * nn, None),
+            ("vel_restrict", n, lambda x=x: cuda_mg.vel_restrict(x),
+             3 * nn, 2 * nn, None),
+            ("vel_prolong", n, lambda x=x, ec=ec: cuda_mg.vel_prolong(x, ec),
+             9 * nn, 6 * nn, None)]
+    return out
+
+
+def phase_mg_kernels(dev, graphs_out: dict) -> dict:
+    """K9-K12 against their plain versions at every level of the slice's
+    hierarchies, timed at the finest levels, and their launches a solve
+    (module docstring, 6b)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    p = {k: SLICE[k] for k in ("c", "d", "xi", "eta_n", "eta_s")}
+    worst, sizes, timed, checked = {}, {}, {}, 0
+    for nh in MG_HIER_N:
+        for dtype in (torch.float32, torch.float64):
+            op = make_multiphase_operator(nh, **p, dtype=dtype, device=dev)
+            plev = multigrid.build_pressure_mg(op)
+            vlev = multigrid.build_velocity_mg(op)
+            for name, n, call, elems, ops, lib in _mg_calls(plev, vlev,
+                                                            dtype, rng):
+                got, want = call(), _plain(call)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                check(torch.equal(got, want),
+                      f"{name} ({MG_KERNEL[name]}) n={n} {_tag(dtype)} "
+                      f"(the {nh}^2 hierarchy): max|kernel-plain| {err:.3e}")
+                checked += 1
+                worst[name] = max(worst.get(name, 0.0), err)
+                sizes.setdefault(name, set()).add(n)
+                if n == nh and (n, dtype) in MG_TIMED:
+                    timed[(name, n, _tag(dtype))] = _compare(
+                        name, f"{MG_KERNEL[name]}, n={n}", dtype, call,
+                        lambda call=call: _plain(call),
+                        elems * got.element_size(), "mg_kernels",
+                        flops=ops, lib=lib)
+            del op, plev, vlev
+            _free_device_memory()
+    say("mg_kernels", checked=checked, all_bit_equal=True,
+        max_abs_diff=json.dumps(worst),
+        level_sizes=json.dumps({k: sorted(v) for k, v in sizes.items()}))
+    launches = {}
+    for n in GRAPHS_N:
+        solve = graphs_out[n]["solves"]["if"][0]["launches"]
+        launches[n] = {k: solve[k] for k in ("f_apply", *cuda_mg.LAUNCHES)}
+        say("mg_kernels", solve=f"{n}^2 hybrid (IF graph)",
+            launches=json.dumps(launches[n]))
+    emit("mg_kernels", seconds=time.perf_counter() - t_phase,
+         checked=checked, max_abs_diff=worst,
+         launches_a_solve={str(n): v for n, v in launches.items()})
+    return timed
 
 
 def phase_layers(dev) -> None:
@@ -1311,7 +1685,7 @@ def phase_sparse_kernels(dev) -> dict:
 
 def _reset_counts() -> None:
     for counts in (cuda_stencil.LAUNCHES, cuda_dia.LAUNCHES,
-                   cuda_ell.LAUNCHES):
+                   cuda_ell.LAUNCHES, cuda_mg.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -2494,7 +2868,8 @@ def main() -> None:
     kres = phase_kernels(dev)
     phase_mms(dev)
     runs = phase_slice(dev)
-    phase_graphs(dev)
+    graphs_out = phase_graphs(dev)
+    mg_timed = phase_mg_kernels(dev, graphs_out)
     phase_layers(dev)
     phase_profile(dev)
     sres = phase_sparse_kernels(dev)
@@ -2546,7 +2921,12 @@ def main() -> None:
         ("ell_spmm", f"K8, f64, BandedELL.matmat path: GtG "
          f"n={SPARSE_ELL_N}, k={SPARSE_K}",
          sres[("ell_spmm", f"GtG n={SPARSE_ELL_N}", torch.float64)],
-         sres["spmm_path_launches"]))]
+         sres["spmm_path_launches"]),
+        # K9-K12: each entry point at the slice's finest level in f32, the
+        # launches of the slice's warm solve
+        *((name, f"{MG_KERNEL[name]}, f32, n=512: the slice's finest MG "
+                 "level", mg_timed[(name, 512, "f32")],
+           runs["warm"]["launches"][name]) for name in cuda_mg.LAUNCHES))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,6 +9,12 @@
 //   a_apply_staged_f32 / _f64    <- multiphase_pallas_apply_pipelined (K4):
 //                                   A with the next tile's reads in flight
 //                                   while the current tile computes
+//   f_sweep_f32 / _f64,          <- the velocity multigrid's compiled loop
+//   f_residual_f32 / _f64           body (K11; XLA's fusion of
+//                                   mpbp_tpu/solvers/multigrid.py
+//                                   _vel_smooth, :368-376, and vel_v_cycle's
+//                                   residual): K1's F x, then
+//                                   x + inv_d (b - F x), or b - F x
 //
 // The per-point arithmetic is written once (point_apply), term for term as
 // mpbp_tpu/models/fused.py writes it (flux form: differences first, then
@@ -19,8 +25,9 @@
 // expressions on registers.
 //
 // Bound: HBM bytes. K1 reads 7 planes and writes 4, K2-K4 read 8 and write
-// 5; ~190-250 operations per point are far below the card's flop/byte
-// balance. One pass, no coefficient planes, each output written once.
+// 5, K11 reads 15 (its residual form 11) and writes 4; ~190-250 operations
+// per point are far below the card's flop/byte balance. One pass, no
+// coefficient planes, each output written once.
 //
 // K1, K2 and K3 are one kernel body, window_apply, over NF = 4 or 5 planes
 // and a row map: K1/K2 read the periodic n x n grid (GridRows: rows r-1,
@@ -323,17 +330,23 @@ struct BandRows {
 // 16-byte load per row (P = 2) and the outputs by one store per plane. Of
 // the pressure window (NF = 5) phase_momentum reads only p(0,0), p(0,-1)
 // and p(-1,0); the compiler drops the other loads.
+//
+// window_points computes the NF x P outputs into `o` (false: the thread
+// has no point); window_apply stores them, and K11 (f_sweep_kernel) runs
+// its epilogue on them first. x0 returns the state's own values at the
+// points (the windows' centres).
 template <typename T, int NF, int P, bool kVec, typename R>
-__device__ __forceinline__ void window_apply(
+__device__ __forceinline__ bool window_points(
     const T* __restrict__ tn, const T* __restrict__ wnx,
-    const T* __restrict__ wny, const T* __restrict__ x, T* __restrict__ out,
-    const R& map, const Coefs<T>& k) {
+    const T* __restrict__ wny, const T* __restrict__ x, const R& map,
+    const Coefs<T>& k, int& c0, size_t& orow, T (&o)[NF][P],
+    T (&x0)[NF][P]) {
   const int n = map.n;
-  const int c0 = (blockIdx.x * blockDim.x + threadIdx.x) * P;
+  c0 = (blockIdx.x * blockDim.x + threadIdx.x) * P;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= map.count() || c0 >= n) return;
-  const size_t plane = map.in_plane(), oplane = map.out_plane();
-  size_t rows[3], orow;
+  if (r >= map.count() || c0 >= n) return false;
+  const size_t plane = map.in_plane();
+  size_t rows[3];
   map.rows(r, rows, orow);
   int cc[P + 2];
 #pragma unroll
@@ -353,7 +366,6 @@ __device__ __forceinline__ void window_apply(
   T wx[P], wy[P];
   load_points<T, P, kVec>(wnx + orow, c0, cc, wx);
   load_points<T, P, kVec>(wny + orow, c0, cc, wy);
-  T o[NF][P];
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     T oj[NF];
@@ -364,7 +376,21 @@ __device__ __forceinline__ void window_apply(
                        k, oj);
 #pragma unroll
     for (int f = 0; f < NF; ++f) o[f][j] = oj[f];
+    x0[0][j] = un[1][1 + j];
+    x0[1][j] = vn[1][1 + j];
+    x0[2][j] = us[1][1 + j];
+    x0[3][j] = vs[1][1 + j];
+    if constexpr (NF == 5) x0[4][j] = pr[1][1 + j];
   }
+  return true;
+}
+
+// The NF x P values `o` at row offset orow, columns c0.. of each out plane.
+template <typename T, int NF, int P, bool kVec>
+__device__ __forceinline__ void store_points(T* __restrict__ out,
+                                             size_t oplane, size_t orow,
+                                             int c0, int n,
+                                             const T (&o)[NF][P]) {
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
     T* dst = out + f * oplane + orow;
@@ -378,6 +404,20 @@ __device__ __forceinline__ void window_apply(
   }
 }
 
+template <typename T, int NF, int P, bool kVec, typename R>
+__device__ __forceinline__ void window_apply(
+    const T* __restrict__ tn, const T* __restrict__ wnx,
+    const T* __restrict__ wny, const T* __restrict__ x, T* __restrict__ out,
+    const R& map, const Coefs<T>& k) {
+  int c0;
+  size_t orow;
+  T o[NF][P], x0[NF][P];
+  if (!window_points<T, NF, P, kVec>(tn, wnx, wny, x, map, k, c0, orow, o,
+                                     x0))
+    return;
+  store_points<T, NF, P, kVec>(out, map.out_plane(), orow, c0, map.n, o);
+}
+
 #define WINDOW_PARAMS(R)                                                    \
   const T *__restrict__ tn, const T *__restrict__ wnx,                     \
       const T *__restrict__ wny, const T *__restrict__ x,                  \
@@ -387,6 +427,59 @@ __device__ __forceinline__ void window_apply(
 template <typename T, int P, bool kVec>
 __global__ void __launch_bounds__(256) f_apply_kernel(WINDOW_PARAMS(GridRows)) {
   window_apply<T, 4, P, kVec>(tn, wnx, wny, x, out, map, k);
+}
+
+// Every product, sum and difference of K11's epilogue rounded once, never
+// contracted (nvcc -O3 contracts a*b+c to one FMA): the plain version runs
+// them as three PyTorch ops.
+__device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double radd(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double rsub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double rmul(double a, double b) { return __dmul_rn(a, b); }
+
+// K11: K1's F x at each point (window_points, as K1 computes it), then
+// the velocity smoother's epilogue x + inv_d (b - F x) (kSweep) or the
+// residual b - F x, on the periodic n x n grid, K1's points a thread.
+template <typename T, int P, bool kVec, bool kSweep>
+__global__ void __launch_bounds__(256)
+f_sweep_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
+               const T* __restrict__ wny, const T* __restrict__ x,
+               const T* __restrict__ b, const T* __restrict__ inv_d,
+               T* __restrict__ out, GridRows map, Coefs<T> k) {
+  int c0;
+  size_t orow;
+  T fx[4][P], x0[4][P];
+  if (!window_points<T, 4, P, kVec>(tn, wnx, wny, x, map, k, c0, orow, fx,
+                                    x0))
+    return;
+  const int n = map.n;
+  const size_t plane = map.out_plane();
+  T o[4][P];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    T bv[P], dv[P];
+    if constexpr (kVec) {
+      RowVec<T, P>::load(b + f * plane + orow + c0, bv);
+      if constexpr (kSweep)
+        RowVec<T, P>::load(inv_d + f * plane + orow + c0, dv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const bool in = c0 + j < n;
+        bv[j] = in ? __ldg(b + f * plane + orow + c0 + j) : T(0);
+        dv[j] = in && kSweep ? __ldg(inv_d + f * plane + orow + c0 + j)
+                             : T(0);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T r = rsub(bv[j], fx[f][j]);
+      o[f][j] = kSweep ? radd(x0[f][j], rmul(dv[j], r)) : r;
+    }
+  }
+  store_points<T, 4, P, kVec>(out, plane, orow, c0, n, o);
 }
 
 // K2 (R = GridRows) and K3 (R = BandRows). A minimum of one block an SM
@@ -618,6 +711,28 @@ int launch_window(const T* tn, const T* wnx, const T* wny, const T* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K11 at P points a thread in blocks of 32 x BY threads, K1's layout;
+// kVec where n % P == 0 and every plane is 16-byte aligned.
+template <typename T, int P, int BY, bool kSweep>
+int launch_f_sweep(const T* tn, const T* wnx, const T* wny, const T* x,
+                   const T* b, const T* inv_d, T* out, int n,
+                   const Coefs<T>& k, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const GridRows map{n};
+  const int groups = (n + P - 1) / P;
+  const dim3 block(32, BY);
+  const dim3 grid((groups + block.x - 1) / block.x,
+                  (n + block.y - 1) / block.y);
+  const bool vec = P > 1 && n % P == 0 && aligned16(tn) && aligned16(wnx)
+                   && aligned16(wny) && aligned16(x) && aligned16(b)
+                   && (!kSweep || aligned16(inv_d)) && aligned16(out);
+  auto* kernel = vec ? &f_sweep_kernel<T, P, (P > 1), kSweep>
+                     : &f_sweep_kernel<T, P, false, kSweep>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      tn, wnx, wny, x, b, inv_d, out, map, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One instance of K4: above the default 48 KB a kernel must opt in, done
 // once per size increase, so a launch inside a CUDA graph capture makes no
 // such call; the grid is as many CTAs as fit on the card at once, or the
@@ -707,6 +822,21 @@ int launch_staged(const T* tn, const T* wnx, const T* wny, const T* x,
                                COEF_ARGS(T), stream);                       \
   }
 
+#define F_SWEEP_ENTRY(NAME, T, P, BY)                                       \
+  extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
+                      const T* b, const T* inv_d, T* out, int n,            \
+                      COEF_PARAMS, void* stream) {                          \
+    return launch_f_sweep<T, P, BY, true>(tn, wnx, wny, x, b, inv_d, out,   \
+                                          n, COEF_ARGS(T), stream);         \
+  }
+#define F_RESIDUAL_ENTRY(NAME, T, P, BY)                                    \
+  extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
+                      const T* b, T* out, int n, COEF_PARAMS,               \
+                      void* stream) {                                       \
+    return launch_f_sweep<T, P, BY, false>(tn, wnx, wny, x, b, nullptr,     \
+                                           out, n, COEF_ARGS(T), stream);   \
+  }
+
 // Points a thread and block rows, from times on the H100 (32 x 8 and 32 x
 // 4 blocks; 1 and 2 points): K1 2 points in 32 x 8 blocks, f32 and f64;
 // K2 2 points (f32) or 1 point (f64) in 32 x 4 blocks. K2 f64 at 2 points
@@ -718,6 +848,11 @@ WINDOW_ENTRY(a_apply_f32, float, 5, 2, 4)
 WINDOW_ENTRY(a_apply_f64, double, 5, 1, 4)
 BAND_ENTRY(a_apply_band_f32, float, 2, 4)
 BAND_ENTRY(a_apply_band_f64, double, 1, 4)
+// K11 takes K1's points a thread and blocks.
+F_SWEEP_ENTRY(f_sweep_f32, float, 2, 8)
+F_SWEEP_ENTRY(f_sweep_f64, double, 2, 8)
+F_RESIDUAL_ENTRY(f_residual_f32, float, 2, 8)
+F_RESIDUAL_ENTRY(f_residual_f64, double, 2, 8)
 STAGED_ENTRY(a_apply_staged_f32, float, 2)
 STAGED_ENTRY(a_apply_staged_f64, double, 1)
 

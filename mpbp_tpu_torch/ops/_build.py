@@ -53,6 +53,18 @@ _SWEEPS_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _I32, _P]
 _SPMM_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I64, _P, _P, _P]
 # graph_if_begin: pred, body stream, stream; graph_if_end: stream
 _IF_BEGIN_ARGS = [_P, _P, _P]
+# K11: tn, wnx, wny, x, b, inv_d, out, n, <the 9 scalars>, stream; its
+# residual form without inv_d
+_F_SWEEP_ARGS = [_P] * 7 + [_I32] + [_F64] * 9 + [_P]
+_F_RESIDUAL_ARGS = [_P] * 6 + [_I32] + [_F64] * 9 + [_P]
+# K9: x, b, rowsum, planes, inv_d, out, n, k, offsets (host int pairs),
+# stream; K10's restriction without inv_d
+_P_SWEEP_ARGS = [_P] * 6 + [_I32, _I32, _P, _P]
+_P_RESTRICT_ARGS = [_P] * 5 + [_I32, _I32, _P, _P]
+# K10's correction and K12's prolongation: x, ec, out, n, stream; K12's
+# restriction: r, out, n, stream
+_TRANSFER_ARGS = [_P] * 3 + [_I32, _P]
+_RESTRICT_ARGS = [_P] * 2 + [_I32, _P]
 
 
 def _both(name: str, args: list) -> dict:
@@ -65,7 +77,14 @@ SOURCES = {
     "fused_stencil": {**_both("f_apply", _STENCIL_ARGS),
                       **_both("a_apply", _STENCIL_ARGS),
                       **_both("a_apply_band", _STENCIL3_ARGS),
-                      **_both("a_apply_staged", _STENCIL3_ARGS)},
+                      **_both("a_apply_staged", _STENCIL3_ARGS),
+                      **_both("f_sweep", _F_SWEEP_ARGS),
+                      **_both("f_residual", _F_RESIDUAL_ARGS)},
+    "mg_stencil": {**_both("p_sweep", _P_SWEEP_ARGS),
+                   **_both("p_restrict", _P_RESTRICT_ARGS),
+                   **_both("p_correct", _TRANSFER_ARGS),
+                   **_both("vel_restrict", _RESTRICT_ARGS),
+                   **_both("vel_prolong", _TRANSFER_ARGS)},
     "sparse_spmv": {**_both("dia_spmv", _DIA_ARGS),
                     **_both("ell_spmv", _ELL_ARGS),
                     **_both("ell_sweeps", _SWEEPS_ARGS),

@@ -233,9 +233,15 @@ def _dispatch(name, reference, tensors, params, dx, dy, ints, out_shape):
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     _build.launch("fused_stencil", f"{name}_{_SUFFIX[x.dtype]}", x.device,
                   *(t.data_ptr() for t in tensors), out.data_ptr(), *ints,
-                  float(params["c"]), float(params["d"]), float(params["xi"]),
-                  float(params["eta_n"]), float(params["eta_s"]),
-                  float(params.get("d_p", 1.0)),
-                  float(params.get("d_div", -1.0)), float(dx), float(dy))
+                  *coef_args(params, dx, dy))
     LAUNCHES.add(name)
     return out
+
+
+def coef_args(params: dict, dx: float, dy: float) -> tuple:
+    """The 9 scalars every fused_stencil entry point takes last: c, d, xi,
+    eta_n, eta_s, d_p, d_div, dx, dy."""
+    return (float(params["c"]), float(params["d"]), float(params["xi"]),
+            float(params["eta_n"]), float(params["eta_s"]),
+            float(params.get("d_p", 1.0)), float(params.get("d_div", -1.0)),
+            float(dx), float(dy))

@@ -61,10 +61,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mpbp_tpu_torch.ops import _build, cuda_dia, cuda_ell, cuda_stencil
+from mpbp_tpu_torch.ops import (_build, cuda_dia, cuda_ell, cuda_mg,
+                                cuda_stencil)
 
 # every kernel wrapper's launch counts
-_COUNTERS = (cuda_stencil.LAUNCHES, cuda_dia.LAUNCHES, cuda_ell.LAUNCHES)
+_COUNTERS = (cuda_stencil.LAUNCHES, cuda_dia.LAUNCHES, cuda_ell.LAUNCHES,
+             cuda_mg.LAUNCHES)
 _disabled = False
 _masked = False
 _recording: "_Recording | None" = None
@@ -120,6 +122,18 @@ def loop(done: torch.Tensor, j: torch.Tensor, m: int,
             step(s)
 
 
+def _stream_besides(device: torch.device, taken) -> torch.cuda.Stream:
+    """A stream of PyTorch's pool that is none of `taken` (raw handles).
+    The pool hands out its streams round-robin, so after 32 requests a new
+    stream is an old one again: a body stream that is the capture's own
+    stream cannot begin a capture of its own (cudaErrorIllegalState)."""
+    for _ in range(64):
+        stream = torch.cuda.Stream(device)
+        if stream.cuda_stream not in taken:
+            return stream
+    raise RuntimeError("no CUDA stream outside the capture's")
+
+
 def _snapshot() -> list[dict]:
     return [dict(c) for c in _COUNTERS]
 
@@ -137,8 +151,9 @@ class _Recording:
     before the capture, `n` slots long: the steps of a masked warm-up."""
 
     def __init__(self, device: torch.device, body: torch.cuda.Stream,
-                 n: int):
+                 capture: torch.cuda.Stream, n: int):
         self.device = device
+        self.capture = capture    # the stream the graph is captured on
         self.streams = [body]     # the body streams, one a nesting depth
         self.depth = 0
         self.live = torch.zeros(n, dtype=torch.bool, device=device)
@@ -160,7 +175,9 @@ class _Recording:
         latest slot."""
         k = len(self.launches) - 1
         if self.depth == len(self.streams):
-            self.streams.append(torch.cuda.Stream(self.device))
+            self.streams.append(_stream_besides(
+                self.device, {s.cuda_stream
+                              for s in (self.capture, *self.streams)}))
         body = self.streams[self.depth]
         before, nested = _snapshot(), [dict(c) for c in self.in_bodies]
         _build.launch("graph_cond", "graph_if_begin", self.device,
@@ -244,7 +261,8 @@ class GraphedApply:
         with torch.cuda.stream(side), masked():
             self.apply(static)
         torch.cuda.current_stream(v.device).wait_stream(side)
-        rec = _Recording(v.device, side, _steps - steps)
+        capture = _stream_besides(v.device, {side.cuda_stream})
+        rec = _Recording(v.device, side, capture, _steps - steps)
         pool = torch.cuda.graph_pool_handle()
         index = torch.cuda.current_device() if v.device.index is None \
             else v.device.index
@@ -252,7 +270,7 @@ class GraphedApply:
         graph = torch.cuda.CUDAGraph()
         _recording, routed = rec, False
         try:
-            with torch.cuda.graph(graph, pool=pool):
+            with torch.cuda.graph(graph, pool=pool, stream=capture):
                 # an IF body is captured on a stream of its own, which the
                 # capture's allocator filter (its stream's capture) does not
                 # route to the graph's pool: route this thread's instead

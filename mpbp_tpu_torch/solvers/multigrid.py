@@ -9,7 +9,14 @@ level, and mean projection (the periodic problem's constant nullspace).
 Velocity MG: V-cycles on F with face-centred MAC transfers (damping 0.7).
 The four velocity fields stay stacked as one (4, n, n) tensor
 [un, vn, us, vs]; every level's smoother and residual apply F through
-kernel K1 (`ops.cuda_stencil.f_apply`).
+kernel K1's per-point code.
+
+What XLA fuses into one pass each under `jit` runs as one kernel launch
+each (`ops/cuda_mg.py`): a pressure sweep (K9), the residual's
+restriction and the correction (K10), a velocity
+sweep or residual (K11) and a velocity face transfer (K12). Each level
+keeps its operator's operands for those kernels (`ScalarFlux`, `VelFlux`)
+and inv_d = damping / diag, the smoothers' damping being fixed (0.8, 0.7).
 
 Every level is built in f64 and then cast, and the coarsest pseudo-inverse
 is computed in f64 on the host and moved to the device once.
@@ -22,7 +29,8 @@ the ring neighbours (the velocity levels through kernel K3 at p = 0), the
 2x2 restrictions stay inside a band, and the y-face prolongation takes the
 next band's first row. Below that, the level's vector is gathered onto
 every rank, the rest of the V-cycle runs replicated, and each rank keeps
-its band of the result. The pressure solver's mean projection is a global
+its band of the result. A banded level (`BandLevel`) is built from its
+full level's operands. The pressure solver's mean projection is a global
 mean. Without a ring nothing changes.
 """
 
@@ -35,12 +43,19 @@ import numpy as np
 import torch
 
 from mpbp_tpu_torch.models.fields import MACGrid, PhaseFields
-from mpbp_tpu_torch.models.fused import make_f_apply_planes
 from mpbp_tpu_torch.models.multiphase import (VEL_FIELDS, MultiphaseOperator,
                                               assemble_velocity_block,
                                               divergence_operator,
                                               gradient_operator)
+from mpbp_tpu_torch.ops import cuda_mg, cuda_stencil
+from mpbp_tpu_torch.ops.cuda_mg import (_XF, _YF, prolong_cell, prolong_xface,
+                                        restrict_cell)
+from mpbp_tpu_torch.ops.cuda_mg import vel_restrict_reference as _restrict_vel
 from mpbp_tpu_torch.ops.stencil import StencilOperator, shift
+
+# the smoothers' damping (the JAX package's defaults), fixed into each
+# level's inv_d
+P_DAMPING, VEL_DAMPING = 0.8, 0.7
 
 
 def _pinv(op64: StencilOperator, dtype: torch.dtype,
@@ -87,15 +102,18 @@ def _gtg_from_theta(T_n: torch.Tensor, n: int, d_p: float, d_div: float,
     return StencilOperator(("p",), ("p",), GtG.terms, grid.shape)
 
 
-def restrict_cell(x: torch.Tensor) -> torch.Tensor:
-    """Full-weighting 2x2 cell average: (..., r, c) -> (..., r/2, c/2)."""
-    r, c = x.shape[-2:]
-    return x.reshape(*x.shape[:-2], r // 2, 2, c // 2, 2).mean(dim=(-3, -1))
+@dataclasses.dataclass(eq=False)
+class ScalarFlux:
+    """The difference-form apply rowsum x + sum_k c_k (shift_k(x) - x) of a
+    single-field stencil, and the operands of kernels K9 and K10."""
 
+    rowsum: torch.Tensor               # (n, n)
+    planes: torch.Tensor               # (k, n, n), in the order of offsets
+    offsets: tuple                     # k (dr, dc) pairs
 
-def prolong_cell(x: torch.Tensor) -> torch.Tensor:
-    """Piecewise-constant prolongation: (..., n/2, n/2) -> (..., n, n)."""
-    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return cuda_mg.p_apply_reference(x, self.rowsum, self.planes,
+                                         self.offsets)
 
 
 @dataclasses.dataclass
@@ -104,20 +122,29 @@ class MGLevel:
     op: StencilOperator
     diag: torch.Tensor                 # (n, n) stencil diagonal
     coarse_pinv: torch.Tensor | None
-    # difference-form apply built from f64 planes (see _scalar_flux_apply)
-    flux_apply: Callable
+    flux: ScalarFlux                   # see _scalar_flux
+    inv_d: torch.Tensor | None = None  # P_DAMPING / diag (not the coarsest)
 
     def apply_p(self, x: torch.Tensor) -> torch.Tensor:
-        return self.flux_apply(x)
+        return self.flux(x)
 
 
-def _scalar_flux_apply(op64: StencilOperator, dtype, ring=None) -> Callable:
+@dataclasses.dataclass(eq=False)
+class BandLevel:
+    """A level of a hierarchy's banded prefix on this rank's band: its
+    inv_d and its apply on the band, which exchanges halo rows."""
+
+    n: int
+    inv_d: torch.Tensor
+    apply: Callable
+
+
+def _scalar_flux(op64: StencilOperator, dtype) -> ScalarFlux:
     """Difference-form apply for a single-field ("p") stencil from f64
     coefficient planes: out = sum_off c*(shift(x)-x) + rowsum*x, with the
     row sum accumulated exactly in f64 before the cast. In f32 the
     coefficient-form apply loses the near-kernel (weights ~n^2 cancel to ~0
-    on smooth modes), which floors the pressure multigrid. With `ring`, the
-    apply on this rank's band, from its rows extended by the halo."""
+    on smooth modes), which floors the pressure multigrid."""
     offmap64 = op64.terms[("p", "p")]
     rowsum = None
     for c in offmap64.values():
@@ -126,25 +153,24 @@ def _scalar_flux_apply(op64: StencilOperator, dtype, ring=None) -> Callable:
     rowsum = rowsum.to(dtype)
     planes = {off: c.to(dtype) for off, c in offmap64.items()
               if off != (0, 0)}
+    shape = op64.shape_grid
+    stacked = torch.stack([c.expand(shape) for c in planes.values()]) \
+        if planes else rowsum.new_empty((0, *shape))
+    return ScalarFlux(rowsum.expand(shape).contiguous(), stacked,
+                      tuple(planes))
 
-    if ring is None:
-        def apply(x: torch.Tensor) -> torch.Tensor:
-            acc = rowsum * x
-            for (dr, dc), c in planes.items():
-                acc = acc + c * (shift(x, dr, dc) - x)
-            return acc
 
-        return apply
-
-    rowsum = ring.band(rowsum)
-    planes = {off: ring.band(c) for off, c in planes.items()}
-    H = max(abs(dr) for dr, _ in planes)
+def _scalar_flux_band(flux: ScalarFlux, ring) -> Callable:
+    """`flux` on this rank's band, from its rows extended by the halo."""
+    rowsum = ring.band(flux.rowsum)
+    planes = [ring.band(c) for c in flux.planes]
+    H = max(abs(dr) for dr, _ in flux.offsets)
 
     def apply_band(x: torch.Tensor) -> torch.Tensor:
         nl = x.shape[-2]
         xe = ring.extend(x, H)
         acc = rowsum * x
-        for (dr, dc), c in planes.items():
+        for (dr, dc), c in zip(flux.offsets, planes):
             sl = xe[H + dr:H + dr + nl]
             if dc:
                 sl = torch.roll(sl, -dc, dims=-1)
@@ -169,12 +195,12 @@ def build_pressure_mg(mop: MultiphaseOperator, n_coarsest: int = 8,
         op64 = _gtg_from_theta(T, n, d_p, d_div, torch.float64)
         op = _cast_op(op64, dtype)
         diag = op.terms[("p", "p")][(0, 0)]
-        flux = _scalar_flux_apply(op64, dtype)
+        flux = _scalar_flux(op64, dtype)
         if n <= n_coarsest or n % 2 != 0:
             levels.append(MGLevel(n, op, diag, _pinv(op64, dtype, T.device),
                                   flux))
             break
-        levels.append(MGLevel(n, op, diag, None, flux))
+        levels.append(MGLevel(n, op, diag, None, flux, P_DAMPING / diag))
         T = restrict_cell(T)
         n //= 2
     return levels
@@ -192,65 +218,64 @@ def banded_depth(levels, ring) -> int:
     return depth
 
 
-def band_pressure_levels(mop: MultiphaseOperator, levels: list[MGLevel],
-                         ring, dtype=None) -> list[MGLevel]:
+def band_pressure_levels(levels: list[MGLevel], ring) -> list[BandLevel]:
     """The banded prefix of a pressure hierarchy (`banded_depth`): each
-    level's diagonal and flux apply on this rank's band."""
-    dtype = dtype or levels[0].diag.dtype
-    d_p, d_div = mop.params["d_p"], mop.params["d_div"]
-    T = mop.phase_n.cell.to(torch.float64)
-    out = []
-    for level in levels[:banded_depth(levels, ring)]:
-        op64 = _gtg_from_theta(T, level.n, d_p, d_div, torch.float64)
-        out.append(MGLevel(level.n, level.op, ring.band(level.diag), None,
-                           _scalar_flux_apply(op64, dtype, ring)))
-        T = restrict_cell(T)
-    return out
+    level's inv_d and flux apply on this rank's band."""
+    return [BandLevel(level.n, ring.band(level.inv_d),
+                      _scalar_flux_band(level.flux, ring))
+            for level in levels[:banded_depth(levels, ring)]]
 
 
-def _smooth(level: MGLevel, b, x, sweeps: int, damping: float):
-    inv_d = damping / level.diag
+def _smooth(level: MGLevel, b, x, sweeps: int):
+    """`sweeps` damped-Jacobi sweeps, one K9 launch each."""
+    f = level.flux
     for _ in range(sweeps):
-        x = x + inv_d * (b - level.apply_p(x))
+        x = cuda_mg.p_sweep(x, b, f.rowsum, f.planes, f.offsets, level.inv_d)
+    return x
+
+
+def _band_smooth(level: BandLevel, b, x, sweeps: int):
+    """`sweeps` damped-Jacobi sweeps on a band, of either hierarchy."""
+    for _ in range(sweeps):
+        x = x + level.inv_d * (b - level.apply(x))
     return x
 
 
 def v_cycle(levels: list[MGLevel], b: torch.Tensor, x: torch.Tensor,
-            lev: int = 0, pre: int = 2, post: int = 2,
-            damping: float = 0.8) -> torch.Tensor:
+            lev: int = 0, pre: int = 2, post: int = 2) -> torch.Tensor:
     level = levels[lev]
     if level.coarse_pinv is not None:
         n = level.n
         return torch.matmul(level.coarse_pinv, b.reshape(-1)).reshape(n, n)
-    x = _smooth(level, b, x, pre, damping)
-    r = b - level.apply_p(x)
-    rc = restrict_cell(r)
-    ec = v_cycle(levels, rc, torch.zeros_like(rc), lev + 1, pre, post,
-                 damping)
+    x = _smooth(level, b, x, pre)
+    f = level.flux
+    # restrict_cell(b - A x) (K10)
+    rc = cuda_mg.p_restrict(x, b, f.rowsum, f.planes, f.offsets)
+    ec = v_cycle(levels, rc, torch.zeros_like(rc), lev + 1, pre, post)
     # the coarse operator is rediscretized from the restricted theta, so
-    # its 1/H^2 scaling already matches the mean-restricted residual
-    x = x + prolong_cell(ec)
-    return _smooth(level, b, x, post, damping)
+    # its 1/H^2 scaling already matches the mean-restricted residual:
+    # x + prolong_cell(ec) (K10)
+    x = cuda_mg.p_correct(x, ec)
+    return _smooth(level, b, x, post)
 
 
-def _band_v_cycle(levels: list[MGLevel], bands: list[MGLevel], ring,
+def _band_v_cycle(levels: list[MGLevel], bands: list[BandLevel], ring,
                   b: torch.Tensor, x: torch.Tensor | None, lev: int = 0,
-                  pre: int = 2, post: int = 2,
-                  damping: float = 0.8) -> torch.Tensor:
+                  pre: int = 2, post: int = 2) -> torch.Tensor:
     """`v_cycle` on this rank's band (x None: zeros); below the banded
     prefix, replicated on the gathered vector."""
     if lev == len(bands):
         bf = ring.gather(b)
         xf = torch.zeros_like(bf) if x is None else ring.gather(x)
-        return ring.band(v_cycle(levels, bf, xf, lev, pre, post, damping))
+        return ring.band(v_cycle(levels, bf, xf, lev, pre, post))
     level = bands[lev]
     x = torch.zeros_like(b) if x is None else x
-    x = _smooth(level, b, x, pre, damping)
-    r = b - level.apply_p(x)
+    x = _band_smooth(level, b, x, pre)
+    r = b - level.apply(x)
     ec = _band_v_cycle(levels, bands, ring, restrict_cell(r), None, lev + 1,
-                       pre, post, damping)
+                       pre, post)
     x = x + prolong_cell(ec)
-    return _smooth(level, b, x, post, damping)
+    return _band_smooth(level, b, x, post)
 
 
 @dataclasses.dataclass(eq=False)
@@ -272,7 +297,7 @@ class MGPressureSolver:
         if ring is None:
             return cls(levels, cycles)
         return cls(levels, cycles, ring=ring,
-                   bands=band_pressure_levels(mop, levels, ring))
+                   bands=band_pressure_levels(levels, ring))
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         """Accepts the flat (n^2,) or the grid (n, n) layout (a band: the
@@ -281,7 +306,7 @@ class MGPressureSolver:
         n = self.levels[0].n
         if self.ring is not None:
             return self._band_call(v, n)
-        b = v.reshape(n, n)
+        b = v.reshape(n, n).contiguous()
         if self.project_mean:
             b = b - torch.mean(b)
         x = torch.zeros_like(b)
@@ -306,40 +331,8 @@ class MGPressureSolver:
 
 # ---------------------------------------------------------------------------
 # Velocity-block multigrid: V-cycles on the coupled F block, face-centred
-# MAC transfers. Stacked layout [un, vn, us, vs]: x-face fields at 0 and 2,
-# y-face fields at 1 and 3, so strided views select them (an index list
-# would copy its indices to the device on every transfer).
+# MAC transfers (`ops/cuda_mg.py`) on the stacked layout [un, vn, us, vs].
 # ---------------------------------------------------------------------------
-_XF = slice(0, 4, 2)
-_YF = slice(1, 4, 2)
-
-
-def restrict_xface(u: torch.Tensor) -> torch.Tensor:
-    """x-face restriction: coarse face (R, C) = mean of the two coincident
-    fine faces (2R, 2C), (2R+1, 2C)."""
-    return 0.5 * (u[..., 0::2, 0::2] + u[..., 1::2, 0::2])
-
-
-def prolong_xface(uc: torch.Tensor) -> torch.Tensor:
-    """x-face prolongation: coincident fine faces copy the coarse value;
-    odd-column faces take the mean of the two adjacent coarse columns."""
-    right = 0.5 * (uc + torch.roll(uc, -1, dims=-1))
-    fine = torch.stack([uc, right], dim=-1).flatten(-2)   # interleave cols
-    return fine.repeat_interleave(2, dim=-2)
-
-
-def restrict_yface(v: torch.Tensor) -> torch.Tensor:
-    """y-face restriction (transpose of x-face): coarse face (R, C) = mean of
-    the fine faces (2R, 2C), (2R, 2C+1)."""
-    return 0.5 * (v[..., 0::2, 0::2] + v[..., 0::2, 1::2])
-
-
-def prolong_yface(vc: torch.Tensor) -> torch.Tensor:
-    down = 0.5 * (vc + torch.roll(vc, -1, dims=-2))
-    fine = torch.stack([vc, down], dim=-2).flatten(-3, -2)  # interleave rows
-    return fine.repeat_interleave(2, dim=-1)
-
-
 def prolong_yface_band(vc: torch.Tensor, below: torch.Tensor) -> torch.Tensor:
     """`prolong_yface` on a band, given `below`, the next band's first row
     (the periodic roll's one row from outside the band)."""
@@ -347,21 +340,6 @@ def prolong_yface_band(vc: torch.Tensor, below: torch.Tensor) -> torch.Tensor:
     down = 0.5 * (vc + nxt)
     fine = torch.stack([vc, down], dim=-2).flatten(-3, -2)
     return fine.repeat_interleave(2, dim=-1)
-
-
-def _restrict_vel(x: torch.Tensor) -> torch.Tensor:
-    out = x.new_empty((4, x.shape[-2] // 2, x.shape[-1] // 2))
-    out[_XF] = restrict_xface(x[_XF])
-    out[_YF] = restrict_yface(x[_YF])
-    return out
-
-
-def _prolong_vel(x: torch.Tensor) -> torch.Tensor:
-    nf = 2 * x.shape[-1]
-    out = x.new_empty((4, nf, nf))
-    out[_XF] = prolong_xface(x[_XF])
-    out[_YF] = prolong_yface(x[_YF])
-    return out
 
 
 def _prolong_vel_band(x: torch.Tensor, ring) -> torch.Tensor:
@@ -372,19 +350,36 @@ def _prolong_vel_band(x: torch.Tensor, ring) -> torch.Tensor:
     return out
 
 
+@dataclasses.dataclass(eq=False)
+class VelFlux:
+    """F's flux-form apply on stacked (4, n, n) velocities through kernel
+    K1, from one level's theta planes, and the operands of K1 and K11.
+    Required for f32 hierarchies, where the coefficient-plane apply's
+    +-O(eta/dx^2) cancellations bury F's near-kernel in roundoff."""
+
+    tn: torch.Tensor                   # (n, n) cell theta
+    wnx: torch.Tensor                  # (n, n) x-face theta
+    wny: torch.Tensor                  # (n, n) y-face theta
+    params: dict
+    dx: float
+    dy: float
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return cuda_stencil.f_apply(self.tn, self.wnx, self.wny, x,
+                                    self.params, self.dx, self.dy)
+
+
 @dataclasses.dataclass
 class VelLevel:
     n: int
     op: StencilOperator            # F on (un, vn, us, vs)
     diag: torch.Tensor             # (4, n, n) stencil diagonals
     coarse_pinv: torch.Tensor | None
-    # flux-form apply through kernel K1: required for f32 hierarchies, where
-    # the coefficient-plane apply's +-O(eta/dx^2) cancellations bury F's
-    # near-kernel in roundoff
-    flux_apply: Callable
+    flux: VelFlux
+    inv_d: torch.Tensor | None = None   # VEL_DAMPING / diag (not the coarsest)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        return self.flux_apply(x)
+        return self.flux(x)
 
 
 def build_velocity_mg(mop: MultiphaseOperator, n_coarsest: int = 8,
@@ -413,87 +408,77 @@ def build_velocity_mg(mop: MultiphaseOperator, n_coarsest: int = 8,
                                       p["xi"], p["eta_n"], p["eta_s"])
         F = _cast_op(F64, dtype)
         diag = torch.stack([F.terms[(f, f)][(0, 0)] for f in VEL_FIELDS])
-        flux = make_f_apply_planes(ph_n.cell.to(dtype).contiguous(),
-                                   ph_n.xface_pt.to(dtype).contiguous(),
-                                   ph_n.yface_pt.to(dtype).contiguous(),
-                                   p, grid.dx, grid.dy)
+        flux = VelFlux(ph_n.cell.to(dtype).contiguous(),
+                       ph_n.xface_pt.to(dtype).contiguous(),
+                       ph_n.yface_pt.to(dtype).contiguous(), dict(p),
+                       grid.dx, grid.dy)
         if n <= n_coarsest or n % 2 != 0:
             levels.append(VelLevel(n, F, diag, _pinv(F64, dtype, device),
                                    flux))
             break
-        levels.append(VelLevel(n, F, diag, None, flux))
+        levels.append(VelLevel(n, F, diag, None, flux, VEL_DAMPING / diag))
         T = restrict_cell(T)
         n //= 2
     return levels
 
 
-def band_velocity_levels(mop: MultiphaseOperator, levels: list[VelLevel],
-                         ring, dtype=None) -> list[VelLevel]:
+def band_velocity_levels(levels: list[VelLevel], ring) -> list[BandLevel]:
     """The banded prefix of a velocity hierarchy (`banded_depth`): each
-    level's diagonals on this rank's band and its F apply as kernel K3 at
-    p = 0 on the halo-extended band, from the level's theta planes."""
+    level's inv_d on this rank's band and its F apply as kernel K3 at p = 0
+    on the halo-extended band, from the level's theta planes."""
     from mpbp_tpu_torch.parallel.pallas_sharded import make_band_apply
 
-    dtype = dtype or levels[0].diag.dtype
-    p = mop.params
-    T = mop.phase_n.cell.to(torch.float64)
     out = []
-    for lev, level in enumerate(levels[:banded_depth(levels, ring)]):
-        grid = MACGrid(level.n, dtype=torch.float64, device=T.device)
-        ph = (mop.phase_n if lev == 0
-              else _phase_fields_from_cell(grid, T))
-        planes = (ph.cell.to(dtype).contiguous(),
-                  ph.xface_pt.to(dtype).contiguous(),
-                  ph.yface_pt.to(dtype).contiguous())
-        out.append(VelLevel(level.n, level.op, ring.band(level.diag), None,
-                            make_band_apply(*planes, p, grid.dx, grid.dy,
-                                            ring, fields=4)))
-        T = restrict_cell(T)
+    for level in levels[:banded_depth(levels, ring)]:
+        f = level.flux
+        out.append(BandLevel(level.n, ring.band(level.inv_d),
+                             make_band_apply(f.tn, f.wnx, f.wny, f.params,
+                                             f.dx, f.dy, ring, fields=4)))
     return out
 
 
 def _vel_smooth(level: VelLevel, b: torch.Tensor, x: torch.Tensor,
-                sweeps: int, damping: float) -> torch.Tensor:
-    inv_d = damping / level.diag
+                sweeps: int) -> torch.Tensor:
+    """`sweeps` damped-Jacobi sweeps, one K11 launch each."""
+    f = level.flux
     for _ in range(sweeps):
-        x = x + inv_d * (b - level.apply(x))
+        x = cuda_mg.f_sweep(f.tn, f.wnx, f.wny, x, b, level.inv_d, f.params,
+                            f.dx, f.dy)
     return x
 
 
 def vel_v_cycle(levels: list[VelLevel], b: torch.Tensor, x: torch.Tensor,
-                lev: int = 0, pre: int = 2, post: int = 2,
-                damping: float = 0.7) -> torch.Tensor:
+                lev: int = 0, pre: int = 2, post: int = 2) -> torch.Tensor:
     level = levels[lev]
     if level.coarse_pinv is not None:
         return torch.matmul(level.coarse_pinv, b.reshape(-1)).reshape(b.shape)
-    x = _vel_smooth(level, b, x, pre, damping)
-    r = b - level.apply(x)
-    rc = _restrict_vel(r)
-    ec = vel_v_cycle(levels, rc, torch.zeros_like(rc), lev + 1, pre, post,
-                     damping)
-    x = x + _prolong_vel(ec)
-    return _vel_smooth(level, b, x, post, damping)
+    x = _vel_smooth(level, b, x, pre)
+    f = level.flux
+    r = cuda_mg.f_residual(f.tn, f.wnx, f.wny, x, b, f.params, f.dx,
+                           f.dy)                                # K11
+    rc = cuda_mg.vel_restrict(r)                                # K12
+    ec = vel_v_cycle(levels, rc, torch.zeros_like(rc), lev + 1, pre, post)
+    x = cuda_mg.vel_prolong(x, ec)           # x + the prolonged ec (K12)
+    return _vel_smooth(level, b, x, post)
 
 
-def _band_vel_v_cycle(levels: list[VelLevel], bands: list[VelLevel], ring,
+def _band_vel_v_cycle(levels: list[VelLevel], bands: list[BandLevel], ring,
                       b: torch.Tensor, x: torch.Tensor | None, lev: int = 0,
-                      pre: int = 2, post: int = 2,
-                      damping: float = 0.7) -> torch.Tensor:
+                      pre: int = 2, post: int = 2) -> torch.Tensor:
     """`vel_v_cycle` on this rank's band (x None: zeros); below the banded
     prefix, replicated on the gathered vector."""
     if lev == len(bands):
         bf = ring.gather(b)
         xf = torch.zeros_like(bf) if x is None else ring.gather(x)
-        return ring.band(vel_v_cycle(levels, bf, xf, lev, pre, post,
-                                     damping))
+        return ring.band(vel_v_cycle(levels, bf, xf, lev, pre, post))
     level = bands[lev]
     x = torch.zeros_like(b) if x is None else x
-    x = _vel_smooth(level, b, x, pre, damping)
+    x = _band_smooth(level, b, x, pre)
     r = b - level.apply(x)
     ec = _band_vel_v_cycle(levels, bands, ring, _restrict_vel(r), None,
-                           lev + 1, pre, post, damping)
+                           lev + 1, pre, post)
     x = x + _prolong_vel_band(ec, ring)
-    return _vel_smooth(level, b, x, post, damping)
+    return _band_smooth(level, b, x, post)
 
 
 @dataclasses.dataclass(eq=False)
@@ -514,7 +499,7 @@ class MGVelocitySolver:
         if ring is None:
             return cls(levels, cycles)
         return cls(levels, cycles, ring=ring,
-                   bands=band_velocity_levels(mop, levels, ring))
+                   bands=band_velocity_levels(levels, ring))
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         n = self.levels[0].n
@@ -525,7 +510,7 @@ class MGVelocitySolver:
                 x = _band_vel_v_cycle(self.levels, self.bands, self.ring, b,
                                       x)
             return x.reshape(v.shape)
-        b = v.reshape(4, n, n)
+        b = v.reshape(4, n, n).contiguous()
         x = torch.zeros_like(b)
         for _ in range(self.cycles):
             x = vel_v_cycle(self.levels, b, x)

@@ -25,9 +25,10 @@ def sources(tmp_path, monkeypatch):
 
 def test_each_source_has_its_own_library(sources):
     stems = set(_build.SOURCES)
-    assert stems == {"fused_stencil", "sparse_spmv", "graph_cond"}
+    assert stems == {"fused_stencil", "sparse_spmv", "graph_cond",
+                     "mg_stencil"}
     paths = {stem: _build.library_path(stem) for stem in stems}
-    assert len(set(paths.values())) == 3
+    assert len(set(paths.values())) == 4
     for stem, path in paths.items():
         assert path.name.startswith(f"lib{stem}_") and path.suffix == ".so"
     with pytest.raises(ValueError):

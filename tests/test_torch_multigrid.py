@@ -11,6 +11,7 @@ from mpbp_tpu.models.multiphase import \
     make_multiphase_operator as jax_make_operator
 from mpbp_tpu.solvers import multigrid as jax_mg
 from mpbp_tpu_torch.models.multiphase import operator_from_numpy
+from mpbp_tpu_torch.ops import cuda_mg
 from mpbp_tpu_torch.solvers import multigrid as mg
 
 torch.set_num_threads(1)
@@ -71,7 +72,7 @@ def test_grid_transfers_match_jax():
     for name, x in (("restrict_cell", fine), ("prolong_cell", coarse),
                     ("restrict_xface", fine), ("prolong_xface", coarse),
                     ("restrict_yface", fine), ("prolong_yface", coarse)):
-        got = getattr(mg, name)(torch.as_tensor(x))
+        got = getattr(cuda_mg, name)(torch.as_tensor(x))
         want = getattr(jax_mg, name)(jnp.asarray(x))
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-15, atol=1e-15, err_msg=name)
