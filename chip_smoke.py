@@ -60,11 +60,14 @@ yardstick only, the port never calls it.
                kernels', in turns (plain, kernels, kernels, plain):
                kernels run, device busy us and wall us of a replay and the
                warm solve's seconds, held to one x and one count. Then the
-               census by caller: one eager 1024^2 apply with chip_smoke's
-               own torch.profiler ranges around the LSC glue, the F-inner
-               Krylov solve, the velocity MG (smoothing; its face
-               transfers apart) and the pressure MG, plain code against
-               kernels: kernels and device us by region, held to no
+               census by caller: one eager 1024^2 apply under the
+               port's tracing (`utils/metrics.tracing`), whose spans are
+               torch.profiler ranges: the LSC glue (`pc.lsc`), the F-inner
+               Krylov solve (`pc.f_inner`), the velocity MG
+               (`mg.velocity`; its face transfers apart,
+               `mg.velocity.transfer`) and the pressure MG
+               (`mg.pressure`), plain code against kernels: kernels and
+               device us by region, held to no
                PyTorch roll/add/sub/mul kernel in the MG regions with the
                kernels but the pressure solver's mean projection (one
                `sub` each side of a solve, PyTorch's). Last, the per-op
@@ -201,7 +204,6 @@ before the last is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import json
 import os
 import statistics
@@ -246,7 +248,7 @@ from mpbp_tpu_torch.solvers import multigrid
 from mpbp_tpu_torch.solvers import preconditioners as pcs
 from mpbp_tpu_torch.solvers.mixed import fgmres_ir
 from mpbp_tpu_torch.solvers.preconditioners import make_lsc_pc_mixed
-from mpbp_tpu_torch.utils import checkpoint
+from mpbp_tpu_torch.utils import checkpoint, metrics
 from mpbp_tpu_torch.utils.norms import norms_report, weighted_l2
 
 SOURCE = {"f_apply": "mpbp_tpu_torch/csrc/fused_stencil.cu",
@@ -322,12 +324,12 @@ K1_BEFORE_K11 = {512: 14575, 1024: 16198}
 # the graphs phase's A/B of the MG kernels against the per-op MG code
 # (`cuda_mg.plain()`), one graph each, in turns
 MG_AB_TURNS = ("plain", "kernels", "kernels", "plain")
-# the census by caller: chip_smoke's profiler ranges around the PC's
-# parts (outermost first); the MG ones are held to no PyTorch per-term
-# kernel (roll, add/sub, mul: their kernels' names) with the kernels, but
-# the pressure solver's mean projection: PROJECTION_SUBS a solve
-REGIONS = ("lsc_glue", "f_inner_krylov", "velocity_mg_smoothing",
-           "velocity_transfers", "pressure_mg")
+# the census by caller: the program's spans around the PC's parts
+# (outermost first); the MG ones are held to no PyTorch per-term kernel
+# (roll, add/sub, mul: their kernels' names) with the kernels, but the
+# pressure solver's mean projection: PROJECTION_SUBS a solve
+REGIONS = ("pc.lsc", "pc.f_inner", "mg.velocity", "mg.velocity.transfer",
+           "mg.pressure")
 MG_REGIONS = REGIONS[2:]
 PER_TERM_KERNELS = ("roll_cuda_kernel", "CUDAFunctor_add", "MulFunctor")
 PROJECTION_SUBS = 2          # b - mean(b) and x - mean(x)
@@ -1095,34 +1097,13 @@ def _mg_ab(n: int, M, G, v, mv, b_vec, u_vec, op64, eager_solve) -> dict:
     return rows
 
 
-def _regioned(label: str, fn):
-    """fn inside a torch.profiler range named `label`."""
-    def run(*args):
-        with torch.profiler.record_function(label):
-            return fn(*args)
-    return run
-
-
-@contextlib.contextmanager
-def _transfer_regions():
-    """The velocity face transfers (K12's wrappers, which the velocity MG
-    calls through the module) inside the velocity_transfers range."""
-    saved = cuda_mg.vel_restrict, cuda_mg.vel_prolong
-    cuda_mg.vel_restrict, cuda_mg.vel_prolong = (
-        _regioned("velocity_transfers", f) for f in saved)
-    try:
-        yield
-    finally:
-        cuda_mg.vel_restrict, cuda_mg.vel_prolong = saved
-
-
-def _region_census(run) -> dict:
-    """One run() under torch.profiler: each device activity (kernel, copy,
-    set) by the innermost of REGIONS whose host range holds the runtime
-    call that launched it (matched by correlation id; else "outside"): its
-    count, device us and names. Time, not the op tree, places a launch:
-    the kernels of this repo are launched through ctypes, from no
-    PyTorch op."""
+def _region_census(run) -> tuple[dict, metrics.Trace]:
+    """One run() under torch.profiler and the port's tracing: each device
+    activity (kernel, copy, set) by the innermost of REGIONS whose host
+    range (a span) holds the runtime call that launched it (matched by
+    correlation id; else "outside"): its count, device us and names; and
+    the run's trace. Time, not the op tree, places a launch: the kernels
+    of this repo are launched through ctypes, from no PyTorch op."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -1130,8 +1111,8 @@ def _region_census(run) -> dict:
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with metrics.tracing() as trace, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     events = prof.events()
@@ -1166,41 +1147,24 @@ def _region_census(run) -> dict:
     for row in by.values():
         row["per_term"] = sum(c for name, c in row["names"].items()
                               if any(p in name for p in PER_TERM_KERNELS))
-    return by
+    return by, trace
 
 
 def _census_by_region(op64, f32, p32, v) -> dict:
-    """One eager apply of the slice's PC with chip_smoke's ranges around
-    its parts (REGIONS), plain MG code against K9-K12: kernels, device us
-    and PyTorch per-term kernels by region. Held: none of the latter in
-    the MG regions with the kernels but the mean projection's
-    PROJECTION_SUBS a pressure-MG solve, more with the plain code (the
-    names are right)."""
-    f_ranged = dataclasses.replace(
-        f32, M=_regioned("velocity_mg_smoothing", f32.M))
-    M = _regioned("lsc_glue", make_lsc_pc_mixed(
-        op64, _regioned("f_inner_krylov", f_ranged),
-        _regioned("pressure_mg", p32)))
-    solves = {}
-    solver_call = multigrid.MGPressureSolver.__call__
-
-    def counted(self, b):
-        solves["pressure_mg"] += 1
-        return solver_call(self, b)
-
-    def run():                  # counts the pressure-MG solves of one apply
-        solves["pressure_mg"] = 0
-        return M(v)
-
-    out = {}
+    """One eager apply of the slice's PC, its parts placed by the
+    program's spans (REGIONS), plain MG code against K9-K12: kernels,
+    device us and PyTorch per-term kernels by region. Held: none of the
+    latter in the MG regions with the kernels but the mean projection's
+    PROJECTION_SUBS a pressure-MG solve (an `mg.pressure` span), more
+    with the plain code (the names are right)."""
+    M = make_lsc_pc_mixed(op64, f32, p32)
+    out, solves = {}, {}
     for way in ("plain", "kernels"):
-        multigrid.MGPressureSolver.__call__ = counted
-        try:
-            with _transfer_regions(), (cuda_mg.plain() if way == "plain"
-                                       else contextlib.nullcontext()):
-                out[way] = by = _region_census(run)
-        finally:
-            multigrid.MGPressureSolver.__call__ = solver_call
+        with (cuda_mg.plain() if way == "plain"
+              else contextlib.nullcontext()):
+            by, trace = _region_census(lambda: M(v))
+        out[way] = by
+        solves[way] = sum(s.name == "mg.pressure" for s in trace.spans)
         for region, row in by.items():
             top = sorted(row["names"].items(), key=lambda kv: -kv[1])[:4]
             say("graphs_by_region", n=int(round((v.numel() / 5) ** 0.5)),
@@ -1209,12 +1173,13 @@ def _census_by_region(op64, f32, p32, v) -> dict:
                 per_term_kernels=row["per_term"],
                 top=json.dumps([(name[:60], c) for name, c in top]))
             row["names"] = dict(top)
-    check(solves["pressure_mg"] > 0, "census by region: no pressure-MG solve")
-    say("graphs_by_region", pressure_mg_solves=solves["pressure_mg"],
+    check(solves["plain"] == solves["kernels"] > 0,
+          f"census by region: pressure-MG solves {solves}")
+    say("graphs_by_region", pressure_mg_solves=solves["kernels"],
         projection_subs_each=PROJECTION_SUBS)
     for region in MG_REGIONS:
-        allowed = (PROJECTION_SUBS * solves["pressure_mg"]
-                   if region == "pressure_mg" else 0)
+        allowed = (PROJECTION_SUBS * solves["kernels"]
+                   if region == "mg.pressure" else 0)
         check(out["kernels"][region]["per_term"] == allowed,
               f"census by region: {out['kernels'][region]['per_term']} "
               f"PyTorch roll/add/sub/mul kernels in {region} with K9-K12 "
@@ -1225,7 +1190,7 @@ def _census_by_region(op64, f32, p32, v) -> dict:
         check(by["unmatched"]["kernels"] == 0,
               f"census by region ({way}): {by['unmatched']['kernels']} "
               "device activities without their runtime call")
-    check(out["plain"]["pressure_mg"]["per_term"] > 0,
+    check(out["plain"]["mg.pressure"]["per_term"] > 0,
           "census by region: no per-term kernel found in the plain "
           "pressure MG (the kernel names in PER_TERM_KERNELS are wrong)")
     return out

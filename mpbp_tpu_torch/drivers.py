@@ -37,6 +37,7 @@ from mpbp_tpu_torch.solvers import gmres as krylov
 from mpbp_tpu_torch.solvers import preconditioners as pcs
 from mpbp_tpu_torch.solvers.mixed import block_scales, fgmres_ir
 from mpbp_tpu_torch.solvers.multigrid import MGPressureSolver, MGVelocitySolver
+from mpbp_tpu_torch.utils import metrics
 from mpbp_tpu_torch.utils.norms import norms_report
 
 @dataclasses.dataclass
@@ -102,6 +103,7 @@ def a_matvec(op: MultiphaseOperator, fused: bool = True) -> Callable:
     return mv
 
 
+@metrics.spanned("pc.build")
 def make_preconditioner(op: MultiphaseOperator, kind: str,
                         ilut_fill: int = 400, ilut_tau: float = 3e-5,
                         ilut_refine: int = 0,
@@ -217,6 +219,7 @@ def _f_krylov_inner(op: MultiphaseOperator, inner_tol: float,
                            M=lambda v: v / fdiag)
 
 
+@metrics.spanned("pc.build")
 def make_preconditioner_mixed(op64: MultiphaseOperator,
                               op32: MultiphaseOperator, kind: str,
                               inner_tol: float = 1e-4,

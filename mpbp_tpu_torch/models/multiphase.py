@@ -29,6 +29,7 @@ from mpbp_tpu_torch.models.fields import (MACGrid, PhaseFields, default_thn,
                                           make_phase_fields,
                                           make_phase_fields_from_planes)
 from mpbp_tpu_torch.ops.stencil import StencilOperator, diagonal_operator, shift
+from mpbp_tpu_torch.utils import metrics
 
 VEL_FIELDS = ("un", "vn", "us", "vs")
 ALL_FIELDS = ("un", "vn", "us", "vs", "p")
@@ -179,6 +180,7 @@ def assemble_velocity_block(ph_n: PhaseFields, ph_s: PhaseFields,
     )
 
 
+@metrics.spanned("operator.assemble")
 def make_multiphase_operator(
     n: int,
     c: float = 1.0,

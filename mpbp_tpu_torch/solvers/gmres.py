@@ -53,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from mpbp_tpu_torch.solvers import graphs
+from mpbp_tpu_torch.utils import metrics
 
 
 class KrylovResult(NamedTuple):
@@ -301,6 +302,7 @@ def _device_solution(state: ArnoldiState, x0: torch.Tensor, M: Callable,
     return x0 + dx.reshape(x0.shape)
 
 
+@metrics.spanned("krylov.result")
 def _host_result(state: ArnoldiState, x0: torch.Tensor, M: Callable,
                  use_z: bool, safe_bnorm) -> KrylovResult:
     """The KrylovResult of an early-exit loop: one read of the state's
@@ -334,8 +336,13 @@ def _steps(state: ArnoldiState, j: int, j_stop: int,
            step: Callable) -> None:
     """Step the state from its iteration j while not done, up to j_stop:
     one host read of `done` an iteration."""
-    while j < j_stop and not bool(state.done):
-        step(j)
+    while j < j_stop:
+        with metrics.span("krylov.read_done"):
+            done = bool(state.done)
+        if done:
+            break
+        with metrics.span("krylov.step"):
+            step(j)
         j += 1
 
 
@@ -345,8 +352,10 @@ def _cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
     """One (F)GMRES cycle of at most m iterations, exiting early (`aug`:
     see `_arnoldi_step`)."""
     _check_orthog(orthog)
-    safe_bnorm = _safe_bnorm(b, group)
-    state = _arnoldi_init(matvec, b, x0, tol, m, use_z, safe_bnorm, group)
+    with metrics.span("krylov.init"):
+        safe_bnorm = _safe_bnorm(b, group)
+        state = _arnoldi_init(matvec, b, x0, tol, m, use_z, safe_bnorm,
+                              group)
     _steps(state, 0, m, lambda s: _arnoldi_step(
         state, matvec, M, b.shape, s, tol, use_z, orthog, safe_bnorm, aug,
         group))
@@ -371,6 +380,7 @@ def _check_orthog(orthog: str) -> None:
         raise ValueError(f"unknown orthog {orthog!r}")
 
 
+@metrics.spanned("krylov.solve")
 def fgmres_resumable(matvec: Callable, b: torch.Tensor,
                      x0: torch.Tensor | None = None, tol: float = 1e-8,
                      maxiter: int = 100, M: Callable | None = None,
@@ -390,8 +400,9 @@ def fgmres_resumable(matvec: Callable, b: torch.Tensor,
     M = _identity if M is None else M
     safe_bnorm = _safe_bnorm(b, group)
     if state is None:
-        state = _arnoldi_init(matvec, b, x0, tol, maxiter, True, safe_bnorm,
-                              group)
+        with metrics.span("krylov.init"):
+            state = _arnoldi_init(matvec, b, x0, tol, maxiter, True,
+                                  safe_bnorm, group)
     elif state.H.shape[1] != maxiter:
         raise ValueError(f"state is of a {state.H.shape[1]}-iteration "
                          f"cycle, maxiter is {maxiter}")
@@ -403,6 +414,7 @@ def fgmres_resumable(matvec: Callable, b: torch.Tensor,
     return _host_result(state, x0, M, True, safe_bnorm), state
 
 
+@metrics.spanned("krylov.solve")
 def fgmres(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
            tol: float = 1e-8, maxiter: int = 100,
            M: Callable | None = None, restart: int | None = None,
@@ -427,6 +439,7 @@ def fgmres(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
                       aug_k, group)
 
 
+@metrics.spanned("krylov.solve")
 def gmres(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
           tol: float = 1e-8, maxiter: int = 100,
           M: Callable | None = None, restart: int | None = None,

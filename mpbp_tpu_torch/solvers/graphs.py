@@ -63,6 +63,7 @@ import torch
 
 from mpbp_tpu_torch.ops import (_build, cuda_dia, cuda_ell, cuda_mg,
                                 cuda_stencil)
+from mpbp_tpu_torch.utils import metrics
 
 # every kernel wrapper's launch counts
 _COUNTERS = (cuda_stencil.LAUNCHES, cuda_dia.LAUNCHES, cuda_ell.LAUNCHES,
@@ -228,6 +229,7 @@ class GraphedApply:
         self.graph: torch.cuda.CUDAGraph | None = None
         self._in = self._out = None
         self._launches: list[dict] = []
+        self._replay_launches = 0      # those of _launches, summed
         self._bodies: _Recording | None = None
         self._per_body: list[dict] = []
         self.gated_steps = self.steps_run = 0
@@ -243,22 +245,28 @@ class GraphedApply:
                 f"graphed apply captured for {tuple(self._in.shape)} "
                 f"{self._in.dtype} on {self._in.device}, called with "
                 f"{tuple(v.shape)} {v.dtype} on {v.device}")
-        self._in.copy_(v)
-        self.graph.replay()
-        for counter, added in zip(_COUNTERS, self._launches):
-            for k, d in added.items():
-                counter.add(k, d)
-        if self._bodies is not None and self._settle not in _build.DEFERRED:
-            _build.DEFERRED.append(self._settle)
-        return self._out.clone()
+        with metrics.span("pc.replay"):
+            self._in.copy_(v)
+            with metrics.device_time("pc.replay"):
+                self.graph.replay()
+            for counter, added in zip(_COUNTERS, self._launches):
+                for k, d in added.items():
+                    counter.add(k, d)
+            metrics.count("pc.launches", self._replay_launches)
+            if self._bodies is not None \
+                    and self._settle not in _build.DEFERRED:
+                _build.DEFERRED.append(self._settle)
+            return self._out.clone()
 
+    @metrics.spanned("graph.capture")
     def _capture(self, v: torch.Tensor) -> None:
         global _recording
         static = v.clone()
         side = torch.cuda.Stream(v.device)
         side.wait_stream(torch.cuda.current_stream(v.device))
         steps = _steps
-        with torch.cuda.stream(side), masked():
+        with metrics.span("graph.warmup"), torch.cuda.stream(side), \
+                masked():
             self.apply(static)
         torch.cuda.current_stream(v.device).wait_stream(side)
         capture = _stream_besides(v.device, {side.cuda_stream})
@@ -268,17 +276,29 @@ class GraphedApply:
             else v.device.index
         before = _snapshot()
         graph = torch.cuda.CUDAGraph()
+        capturing = torch.cuda.graph(graph, pool=pool, stream=capture)
         _recording, routed = rec, False
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=capture):
-                # an IF body is captured on a stream of its own, which the
-                # capture's allocator filter (its stream's capture) does not
-                # route to the graph's pool: route this thread's instead
-                torch._C._cuda_endAllocateToPool(index, pool)
-                torch._C._cuda_beginAllocateCurrentThreadToPool(index, pool)
-                routed = True
-                out = self.apply(static)
-                rec.finish()
+            # the entry (a sync, the cache emptied, capture_begin) and the
+            # exit (capture_end, the instantiation): spans of their own
+            with metrics.span("graph.begin"):
+                capturing.__enter__()
+            try:
+                with metrics.span("graph.record") as recorded:
+                    # an IF body is captured on a stream of its own, which
+                    # the capture's allocator filter (its stream's capture)
+                    # does not route to the graph's pool: route this
+                    # thread's instead
+                    torch._C._cuda_endAllocateToPool(index, pool)
+                    torch._C._cuda_beginAllocateCurrentThreadToPool(index,
+                                                                    pool)
+                    routed = True
+                    reserved = torch.cuda.memory_reserved(index)
+                    out = self.apply(static)
+                    rec.finish()
+            finally:
+                with metrics.span("graph.end"):
+                    capturing.__exit__(None, None, None)
         finally:
             _recording = None
             if routed:
@@ -287,7 +307,12 @@ class GraphedApply:
             after = _snapshot()
             for counter, b in zip(_COUNTERS, before):
                 counter.update(b)
+        if recorded is not None:      # tracing: the pool's bytes
+            metrics.count("graph.pool_bytes",
+                          torch.cuda.memory_reserved(index) - reserved)
         self._launches = _minus(_minus(after, before), rec.in_bodies)
+        self._replay_launches = sum(n for d in self._launches
+                                    for n in d.values())
         self.gated_steps = len(rec.launches)
         if rec.launches:
             self._bodies = rec
@@ -306,6 +331,9 @@ class GraphedApply:
         ran = rec.ran[:len(rec.launches)].cpu().numpy()
         rec.ran.zero_()
         self.steps_run += int(ran.sum())
+        metrics.count("pc.inner_steps", int(ran.sum()))
         for counter, per in zip(_COUNTERS, self._per_body):
             for k, each in per.items():
-                counter.add(k, int(ran @ each))
+                launched = int(ran @ each)
+                counter.add(k, launched)
+                metrics.count("pc.launches", launched)

@@ -52,6 +52,7 @@ from mpbp_tpu_torch.ops.cuda_mg import (_XF, _YF, prolong_cell, prolong_xface,
                                         restrict_cell)
 from mpbp_tpu_torch.ops.cuda_mg import vel_restrict_reference as _restrict_vel
 from mpbp_tpu_torch.ops.stencil import StencilOperator, shift
+from mpbp_tpu_torch.utils import metrics
 
 # the smoothers' damping (the JAX package's defaults), fixed into each
 # level's inv_d
@@ -180,6 +181,7 @@ def _scalar_flux_band(flux: ScalarFlux, ring) -> Callable:
     return apply_band
 
 
+@metrics.spanned("mg.pressure.build")
 def build_pressure_mg(mop: MultiphaseOperator, n_coarsest: int = 8,
                       dtype=None) -> list[MGLevel]:
     """Level hierarchy for the GtG pressure block of an assembled system,
@@ -299,6 +301,7 @@ class MGPressureSolver:
         return cls(levels, cycles, ring=ring,
                    bands=band_pressure_levels(levels, ring))
 
+    @metrics.spanned("mg.pressure")
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         """Accepts the flat (n^2,) or the grid (n, n) layout (a band: the
         flat (n_loc n,) or (n_loc, n)); the output shape matches the
@@ -382,6 +385,7 @@ class VelLevel:
         return self.flux(x)
 
 
+@metrics.spanned("mg.velocity.build")
 def build_velocity_mg(mop: MultiphaseOperator, n_coarsest: int = 8,
                       dtype=None) -> list[VelLevel]:
     """Level hierarchy for the coupled velocity block F, rediscretized from
@@ -456,9 +460,11 @@ def vel_v_cycle(levels: list[VelLevel], b: torch.Tensor, x: torch.Tensor,
     f = level.flux
     r = cuda_mg.f_residual(f.tn, f.wnx, f.wny, x, b, f.params, f.dx,
                            f.dy)                                # K11
-    rc = cuda_mg.vel_restrict(r)                                # K12
+    with metrics.span("mg.velocity.transfer"):
+        rc = cuda_mg.vel_restrict(r)                            # K12
     ec = vel_v_cycle(levels, rc, torch.zeros_like(rc), lev + 1, pre, post)
-    x = cuda_mg.vel_prolong(x, ec)           # x + the prolonged ec (K12)
+    with metrics.span("mg.velocity.transfer"):
+        x = cuda_mg.vel_prolong(x, ec)       # x + the prolonged ec (K12)
     return _vel_smooth(level, b, x, post)
 
 
@@ -501,6 +507,7 @@ class MGVelocitySolver:
         return cls(levels, cycles, ring=ring,
                    bands=band_velocity_levels(levels, ring))
 
+    @metrics.spanned("mg.velocity")
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         n = self.levels[0].n
         if self.ring is not None:

@@ -32,6 +32,7 @@ from mpbp_tpu_torch.ops.ilu import ILUPreconditioner
 from mpbp_tpu_torch.ops.spgemm import lsc_products_device
 from mpbp_tpu_torch.ops.stencil import StencilOperator
 from mpbp_tpu_torch.solvers import gmres as krylov
+from mpbp_tpu_torch.utils import metrics
 
 
 def _sizes(op: MultiphaseOperator):
@@ -55,6 +56,7 @@ def pack_vel(op: MultiphaseOperator, x: dict) -> torch.Tensor:
     return torch.cat([x[f].reshape(-1) for f in VEL_FIELDS])
 
 
+@metrics.spanned("pc.lsc_products")
 def lsc_products(op: MultiphaseOperator):
     """Gt_G = (-D) G and Gt_F_G = (-D) F G as exact stencil operators."""
     GtG = op.minus_D @ op.G
@@ -181,6 +183,7 @@ def _lsc_apply(op: MultiphaseOperator, GtFG, f_inner: Callable,
                p_inner: Callable) -> Callable:
     n = op.grid.n
 
+    @metrics.spanned("pc.lsc")
     def apply(v):
         vu, vp = split_uv_p(op, v)
         u_hat = f_inner(vu)
@@ -209,7 +212,8 @@ def make_lsc_pc(op: MultiphaseOperator, f_inner: Callable,
       return [u, x_p]
     """
     _, GtFG = lsc_products(op)
-    return _lsc_apply(op, GtFG, f_inner, p_inner)
+    return _lsc_apply(op, GtFG, metrics.spanned("pc.f_inner")(f_inner),
+                      metrics.spanned("pc.p_inner")(p_inner))
 
 
 def scaled32_apply(inner32: Callable, v64: torch.Tensor,
@@ -244,6 +248,8 @@ def make_lsc_pc_mixed(op64: MultiphaseOperator, f_inner32: Callable,
     each. refine_inners=False runs each inner solve once, scaled to f32
     and back, with no refinement pass."""
     GtG64, GtFG = lsc_products(op64)
+    f_inner32 = metrics.spanned("pc.f_inner")(f_inner32)
+    p_inner32 = metrics.spanned("pc.p_inner")(p_inner32)
     if not refine_inners:
         return _lsc_apply(op64, GtFG,
                           lambda vu64: scaled32_apply(f_inner32, vu64),

@@ -44,6 +44,7 @@ from mpbp_tpu_torch.solvers import gmres as krylov
 from mpbp_tpu_torch.solvers import graphs
 from mpbp_tpu_torch.solvers.multigrid import MGPressureSolver
 from mpbp_tpu_torch.solvers.preconditioners import KrylovInner
+from mpbp_tpu_torch.utils import metrics
 
 torch.set_num_threads(1)
 
@@ -114,9 +115,13 @@ def test_the_guard_catches_a_host_read():
     t[2] = 0
 
 
-@pytest.mark.parametrize("precision", ["full", "hybrid"])
-def test_lsc_mg_full_apply_reads_no_host(precision):
-    """(a) One lsc_mg_full PC apply at n=16, built outside the guard."""
+@pytest.mark.parametrize("precision,traced", [
+    ("full", False), ("hybrid", False), ("full", True), ("hybrid", True)],
+    ids=["full", "hybrid", "full-traced", "hybrid-traced"])
+def test_lsc_mg_full_apply_reads_no_host(precision, traced):
+    """(a) One lsc_mg_full PC apply at n=16, built outside the guard; also
+    with the port's tracing on (`utils/metrics.py`: no span reads the
+    device)."""
     op64, op32 = operators(16)
     if precision == "full":
         M = make_preconditioner(op64, "lsc_mg_full", inner_iters=40)
@@ -124,9 +129,12 @@ def test_lsc_mg_full_apply_reads_no_host(precision):
         M = make_preconditioner_mixed(op64, op32, "lsc_mg_full")
     v = torch.as_tensor(np.random.default_rng(0).normal(size=5 * 16 * 16))
     want = M(v)
-    with graphs.masked(), no_host_read():
+    with (metrics.tracing() if traced else contextlib.nullcontext()) as t, \
+            graphs.masked(), no_host_read():
         got = M(v)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+    assert not traced or [s.name for s in t.spans][:2] == ["pc.lsc",
+                                                           "pc.f_inner"]
 
 
 @pytest.mark.parametrize("method", ["gmres", "cg"])
