@@ -32,8 +32,8 @@ mode, so x, the counts and the census are the same bits in all three.
 
 What capture needs of the apply: it reads nothing back to the host (the
 fixed-budget loops, the multigrid cycles, the LSC formula), its input
-arrives in one static buffer and every tensor it closes over outlives the
-graph (the setup memo of `drivers._solve_setup` holds both). A step body
+arrives in one static buffer, and the tensors it closes over live as long
+as the graph (the graph holds the apply). A step body
 writes the loop state in place: a tensor it allocates is garbage after a
 replay that skipped it. A body is captured on a stream of its own, and
 the capture routes this thread's allocations to the graph's pool, so the
@@ -51,11 +51,45 @@ read of a count (`ops/_build.Launches`), never inside an apply.
 On a CPU tensor the apply runs directly (there is no CPU graph), and
 inside `disabled()` it runs eagerly on any device: the counterpart of
 `jax.disable_jit()`, for an A/B and for debugging.
+
+A released graph is reused, as `jax.jit`'s cache reuses a compiled
+program for new argument values of the same shapes. When a captured
+`GraphedApply` is garbage, its graph, static buffers, recording and the
+apply it recorded go to a retired slot (one entry; a newer one replaces
+it). The first call of a new `GraphedApply` walks its apply's object tree
+as built (closure cells, function defaults and attributes, bound methods,
+`functools.partial`, dataclass instances, dicts, lists and tuples; any
+other object is a leaf known by its identity) into a structure key: every
+non-tensor leaf by value, every tensor's type, shape, strides, offset,
+dtype and device, and which tensors share a storage; the input's shape,
+dtype and device and the recording modes (`masked()`, `cuda_mg.plain()`)
+besides. Where the retired apply's key is the same, the new apply's
+storages are copied, bit for bit, into the retired tree's (one
+`_foreach_copy_` on the current stream) and the new `GraphedApply` takes
+the graph over and replays it: no warm-up, no capture, no instantiation.
+Otherwise the retired entry is dropped and the apply is captured.
+`release()` frees the released graphs at once.
+
+Nothing the caller can still reach is ever written. The copy happens only
+where, at that moment, nothing outside the retired tree refers to an
+object of it that leads to a tensor (Python reference counts against the
+references the walk found), no other tensor shares one of its storages
+(the storages' use counts), and the tree holds no view. A tree whose
+apply wrote one of its own tensors while it was captured (a census, say)
+is never retired. From then on the adopted graph reads the copy made at
+the first call, and `apply` is the recorded apply holding the new values:
+an in-place change to the caller's tensors after the first call reaches
+neither.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
+import sys
+import types
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -72,6 +106,7 @@ _disabled = False
 _masked = False
 _recording: "_Recording | None" = None
 _steps = 0             # the budgets of every `loop` so far
+_retired: "_Captured | None" = None    # a released graph (module docstring)
 
 
 @contextlib.contextmanager
@@ -95,6 +130,16 @@ def masked():
         yield
     finally:
         _masked = before
+
+
+def release() -> None:
+    """Free the released graphs now: settle the launch tallies that keep a
+    released `GraphedApply` alive (one read of the device), then drop the
+    retired graph with its pool and its apply's tensors (module
+    docstring)."""
+    global _retired
+    _build.settle_deferred()
+    _retired = None
 
 
 def loop(done: torch.Tensor, j: torch.Tensor, m: int,
@@ -206,6 +251,200 @@ class _Recording:
         self.live.zero_()
 
 
+# leaves of an apply's tree known by their value
+_VALUES = (type(None), bool, int, float, complex, str, bytes, torch.dtype,
+           torch.device, np.generic)
+
+
+class _Tree:
+    """One walk of an apply's object tree (module docstring): `key`, its
+    structure; `nodes`, every object walked but the leaves, in order, and
+    `refs`, the tree's references to each; `storages`, for each storage
+    of its tensors, [the node of one tensor on it, the tensors of the tree
+    on it, the order in which the walk met it]."""
+
+    def __init__(self, root):
+        self.key: list = []
+        self.nodes: list = []
+        self.refs: list[int] = []
+        self.storages: dict = {}
+        self.views = False
+        self._edges: list[tuple[int, int]] = []
+        self._ids: dict[int, int] = {}
+        self._walk(root, None)
+
+    def _walk(self, obj, parent: int | None) -> None:
+        if isinstance(obj, _VALUES):
+            self.key.append((type(obj), obj.hex() if isinstance(obj, float)
+                             else obj.tobytes() if isinstance(obj, np.generic)
+                             else obj))
+            return
+        i = self._ids.get(id(obj))
+        if i is None:
+            children = self._children(obj)
+            if children is None:
+                self.key.append(("leaf", id(obj)))
+                return
+            i = self._ids[id(obj)] = len(self.nodes)
+            self.nodes.append(obj)
+            self.refs.append(0)
+        else:
+            children = None
+            self.key.append(("node", i))
+        if parent is not None:
+            self.refs[i] += 1
+            self._edges.append((parent, i))
+        for child in children or ():
+            self._walk(child, i)
+
+    def _children(self, obj):
+        """The objects `obj` refers to, after its token in the key; None
+        for a leaf known by its identity."""
+        kind = type(obj)
+        if isinstance(obj, torch.Tensor):
+            if obj.layout != torch.strided or obj.is_meta:
+                return None
+            self.views |= obj._is_view()
+            storage = obj.untyped_storage()
+            at = (obj.device, storage.data_ptr()) if storage.nbytes() \
+                else ("empty", id(obj))
+            if at not in self.storages:
+                self.storages[at] = [len(self.nodes), 0, len(self.storages)]
+            entry = self.storages[at]
+            entry[1] += 1
+            self.key.append((kind, obj.dtype, obj.device, tuple(obj.shape),
+                             obj.stride(), obj.storage_offset(),
+                             obj.requires_grad, obj.is_conj(), obj.is_neg(),
+                             entry[2], storage.nbytes()))
+            return ()
+        if kind is types.FunctionType:
+            attrs = vars(obj)
+            self.key.append((kind, id(obj.__code__), id(obj.__globals__),
+                             tuple(attrs)))
+            return (obj.__closure__, obj.__defaults__, obj.__kwdefaults__,
+                    *attrs.values())
+        if kind is types.CellType:
+            self.key.append((kind,))
+            try:
+                return (obj.cell_contents,)
+            except ValueError:               # an empty cell
+                return ()
+        if kind is types.MethodType:
+            self.key.append((kind,))
+            return (obj.__func__, obj.__self__)
+        if kind is functools.partial:
+            self.key.append((kind,))
+            return (obj.func, obj.args, obj.keywords)
+        if kind in (tuple, list):
+            self.key.append((kind, len(obj)))
+            return obj
+        if kind is dict:
+            self.key.append((kind, len(obj)))
+            return (x for item in obj.items() for x in item)
+        if dataclasses.is_dataclass(obj) and not isinstance(obj, type) \
+                and hasattr(obj, "__dict__"):
+            attrs = vars(obj)
+            self.key.append((kind, tuple(attrs)))
+            return attrs.values()
+        return None
+
+    def _leads(self) -> set[int]:
+        """The nodes from which a tensor is reached."""
+        leads = {i for i, obj in enumerate(self.nodes)
+                 if isinstance(obj, torch.Tensor)}
+        grew = True
+        while grew:
+            grew = False
+            for parent, child in self._edges:
+                if child in leads and parent not in leads:
+                    leads.add(parent)
+                    grew = True
+        return leads
+
+    def unreachable(self, holders: int) -> bool:
+        """Whether nothing outside the tree reaches its tensors' memory:
+        no reference to a node that leads to a tensor but the tree's own
+        (and, to the root, `holders`), no other tensor or storage object
+        on one of its storages, and no view in it."""
+        if self.views:
+            return False
+        tensor_refs, storage_refs, uses = _counts()
+        for i in self._leads():
+            # those of `nodes` and of getrefcount's argument, as counted
+            alone = tensor_refs if isinstance(self.nodes[i], torch.Tensor) \
+                else 2
+            held = self.refs[i] + alone + (holders if i == 0 else 0)
+            if sys.getrefcount(self.nodes[i]) != held:
+                return False
+        for i, tensors, _ in self.storages.values():
+            storage = self.nodes[i].untyped_storage()
+            if sys.getrefcount(storage) != storage_refs or \
+                    torch._C._storage_Use_Count(storage._cdata) \
+                    != uses + tensors - 1:
+                return False
+        return True
+
+    def versions(self) -> list[int]:
+        return [obj._version for obj in self.nodes
+                if isinstance(obj, torch.Tensor)]
+
+    def copy_from(self, new: "_Tree") -> None:
+        """Copy each storage of `new`'s tensors into the matching storage
+        of this tree, byte for byte (the keys are equal)."""
+        pairs: dict = {}
+        for (i, _, _), (j, _, _) in zip(self.storages.values(),
+                                        new.storages.values()):
+            dst, src = self.nodes[i], new.nodes[j]
+            d, s = pairs.setdefault(dst.device, ([], []))
+            d.append(_bytes(dst))
+            s.append(_bytes(src))
+        for d, s in pairs.values():
+            torch._foreach_copy_(d, s)
+
+
+def _counts() -> tuple[int, int, int]:
+    """As this PyTorch counts them: the references to a tensor that one
+    list holds, to its storage's Python object that one local holds, and
+    the uses of that storage (the tensor's and the object's)."""
+    one = [torch.empty(1)]
+    storage = one[0].untyped_storage()
+    return (sys.getrefcount(one[0]), sys.getrefcount(storage),
+            torch._C._storage_Use_Count(storage._cdata))
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """The whole storage of `t` as a uint8 tensor."""
+    return torch.empty(0, dtype=torch.uint8, device=t.device).set_(
+        t.untyped_storage())
+
+
+def _modes(v: torch.Tensor) -> tuple:
+    """What a capture's recording depends on besides its apply's tree."""
+    return (tuple(v.shape), v.dtype, v.device, _masked, cuda_mg._plain)
+
+
+@dataclasses.dataclass(eq=False)
+class _Captured:
+    """What a capture made: the graph, its static buffers, the IF bodies'
+    recording and the kernel wrappers' launch tables, with the apply it
+    recorded (the graph reads that apply's tensors)."""
+
+    apply: Callable
+    modes: tuple
+    graph: torch.cuda.CUDAGraph
+    inp: torch.Tensor
+    out: torch.Tensor
+    launches: list[dict]
+    bodies: _Recording | None
+    per_body: list[dict]
+    gated_steps: int
+
+
+def _retire(captured: _Captured) -> None:
+    global _retired
+    _retired = captured
+
+
 class GraphedApply:
     """`apply` (a tensor -> tensor function with no host read) captured as
     a CUDA graph at its first CUDA call and replayed on each later one.
@@ -214,7 +453,10 @@ class GraphedApply:
     once on a side stream as the masked budget (the warm-up: lazy library
     loads and allocator state stay out of the recording, and its steps
     size the IF bodies' buffers; the side stream then takes the bodies),
-    captures `apply` on that buffer and replays the graph. Each
+    captures `apply` on that buffer and replays the graph; or, where a
+    released graph recorded an apply of the same structure, copies this
+    apply's tensors into that apply's and takes its graph over (module
+    docstring). `_capture` makes the graph either way. Each
     call after it copies its input in, replays and returns a copy of the
     static output (a caller may keep it: the next replay overwrites the
     buffer). The input's shape, dtype and device are fixed by the first
@@ -260,6 +502,55 @@ class GraphedApply:
 
     @metrics.spanned("graph.capture")
     def _capture(self, v: torch.Tensor) -> None:
+        """Make the graph at the first CUDA call: adopt the retired one
+        where its apply has this apply's structure, else capture (module
+        docstring)."""
+        # a replayed graph held by nothing but its pending launch tallies
+        # is garbage once they are settled, and retired then
+        _build.settle_deferred()
+        tree = _Tree(self.apply)
+        if self._adopt(v, tree):
+            metrics.count("graph.adoptions")
+            return
+        versions = tree.versions()
+        captured = self._record(v)
+        metrics.count("graph.captures")
+        # an apply that wrote a tensor of its own tree is never retired
+        self._take(captured, retire=tree.versions() == versions)
+
+    def _adopt(self, v: torch.Tensor, tree: _Tree) -> bool:
+        """Take the retired graph over if its apply's key is `tree`'s and
+        nothing outside the retired slot reaches its tensors: copy the
+        new tensors in. Else drop it, so that its memory is free before
+        the capture."""
+        global _retired
+        retired, _retired = _retired, None
+        if retired is None or retired.modes != _modes(v):
+            return False
+        old = _Tree(retired.apply)
+        if old.key != tree.key or not old.unreachable(holders=1):
+            return False
+        with metrics.span("graph.adopt"):
+            old.copy_from(tree)
+            self._take(retired, retire=True)
+        return True
+
+    def _take(self, captured: _Captured, retire: bool) -> None:
+        """Replay `captured` from now on; if `retire`, it goes to the
+        retired slot when this GraphedApply is garbage."""
+        self.apply = captured.apply
+        self.graph = captured.graph
+        self._in, self._out = captured.inp, captured.out
+        self._launches = captured.launches
+        self._replay_launches = sum(n for d in self._launches
+                                    for n in d.values())
+        self._bodies, self._per_body = captured.bodies, captured.per_body
+        self.gated_steps = captured.gated_steps
+        if retire:
+            weakref.finalize(self, _retire, captured).atexit = False
+
+    def _record(self, v: torch.Tensor) -> _Captured:
+        """Capture `apply` on a static copy of `v`."""
         global _recording
         static = v.clone()
         side = torch.cuda.Stream(v.device)
@@ -310,18 +601,17 @@ class GraphedApply:
         if recorded is not None:      # tracing: the pool's bytes
             metrics.count("graph.pool_bytes",
                           torch.cuda.memory_reserved(index) - reserved)
-        self._launches = _minus(_minus(after, before), rec.in_bodies)
-        self._replay_launches = sum(n for d in self._launches
-                                    for n in d.values())
-        self.gated_steps = len(rec.launches)
+        bodies, per_body = None, []
         if rec.launches:
-            self._bodies = rec
+            bodies = rec
             keys = [sorted({k for body in rec.launches for k in body[i]})
                     for i in range(len(_COUNTERS))]
-            self._per_body = [
+            per_body = [
                 {k: np.array([body[i].get(k, 0) for body in rec.launches])
                  for k in keys[i]} for i in range(len(_COUNTERS))]
-        self._in, self._out, self.graph = static, out, graph
+        return _Captured(self.apply, _modes(v), graph, static, out,
+                         _minus(_minus(after, before), rec.in_bodies),
+                         bodies, per_body, len(rec.launches))
 
     def _settle(self) -> None:
         """Add each IF body's launches times the replays it ran in, and

@@ -157,8 +157,10 @@ def _scalar_flux(op64: StencilOperator, dtype) -> ScalarFlux:
     shape = op64.shape_grid
     stacked = torch.stack([c.expand(shape) for c in planes.values()]) \
         if planes else rowsum.new_empty((0, *shape))
-    return ScalarFlux(rowsum.expand(shape).contiguous(), stacked,
-                      tuple(planes))
+    # a copy, not a view of the temporary: a graph retired with a view in
+    # its apply's tree is never adopted (`solvers/graphs.py`)
+    return ScalarFlux(rowsum.expand(shape).clone(
+        memory_format=torch.contiguous_format), stacked, tuple(planes))
 
 
 def _scalar_flux_band(flux: ScalarFlux, ring) -> Callable:

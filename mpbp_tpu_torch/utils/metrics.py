@@ -30,7 +30,10 @@ program_trace.py`, `chip_smoke.py`'s census by region):
       pc.replay         a graphed PC's copy in, replay and copy out; its
                         replay is the `device_time` pair "pc.replay"
     krylov.result       the host's read of the state and back-substitution
-  graph.capture         `GraphedApply`'s capture at its first call
+  graph.capture         `GraphedApply`'s graph made at its first call
+    graph.adopt         a released graph of the same structure taken over:
+                        the copy of the new tensors into its apply's
+                        (where it happens, none of the four below)
     graph.warmup        the masked warm-up apply
     graph.begin         `torch.cuda.graph`'s entry (sync, cache emptying,
                         capture_begin)
@@ -52,7 +55,9 @@ device allocations and frees over the span (attrs `device_allocs`,
 Counters: `pc.inner_steps`, the IF bodies the replays ran;
 `pc.launches`, the kernel-wrapper launches they made (what they add to
 `ops/_build.Launches`); `graph.pool_bytes`, the device memory the
-captures' recordings reserved for their graphs' pools.
+captures' recordings reserved for their graphs' pools; `graph.captures`
+and `graph.adoptions`, the first calls that captured a graph and those
+that took a released one over.
 """
 
 from __future__ import annotations

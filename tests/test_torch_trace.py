@@ -149,6 +149,7 @@ def cuda_device():
 def test_traced_graphed_solve_on_the_card(cuda_device):
     """A 64^2 hybrid solve through a graphed PC, captured inside the
     traced solve, against one through a graph captured untraced."""
+    graphs.release()     # no earlier test's released graph is adopted
     M, mv, b = _build(64, cuda_device)
     off = _solve(graphs.GraphedApply(M), mv, b)
     G = graphs.GraphedApply(M)
