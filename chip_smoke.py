@@ -440,7 +440,9 @@ SHARDED_SOLVES = (
 # row's count is outer / inner and its tol the outer one; the 2048^2 row
 # (restart 15, LGMRES aug_k 2, maxiter 120: JAX's fastest converged 2048^2)
 # goes on from x to AT_SCALE_TIGHT_TOL, whose L2 is held to the
-# discretization error SHARDED_r05.json records at 2048^2
+# discretization error SHARDED_r05.json records at 2048^2. Its count is
+# printed, not held: it follows rounding, 109 on the port's tree and 40-109
+# under 1e-14 perturbations of the right-hand side (aug_k 0: 50-82)
 AT_SCALE = (
     ("1024^2 hybrid unrestarted",
      ["--n", "1024", "--mode", "hybrid", "--tol", "1e-10"], 21, 5.76030e-6),

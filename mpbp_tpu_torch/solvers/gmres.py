@@ -45,6 +45,7 @@ projection with the norm before it into one all-reduce a pass. Without
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple
 
@@ -204,11 +205,16 @@ def _orthogonalize(V: torch.Tensor, w: torch.Tensor, s: int, orthog: str,
 def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
                   shape, s: int, tol: float, use_z: bool, orthog: str,
                   safe_bnorm, aug: torch.Tensor | None = None,
-                  group=None) -> None:
+                  group=None, traced: bool = False) -> None:
     """FGMRES iteration s of a cycle on `state`, in place, with no host
     read. Every update is taken only where the state was not done, so a
     step after done changes nothing (the fixed-budget loops); while not
     done, s equals state.j (the early-exit loops step only then).
+
+    `traced` (the early-exit loops' steps): the projection is the span
+    krylov.orthogonalize (attr `basis_rows`, s + 1), on a CUDA device
+    with its `device_time` pair of the same name. A fixed-budget step may
+    run under a graph capture, where no event pair is recorded.
 
     `aug`: optional (k, *S) augmentation directions consumed as the LAST k
     flexible directions of the cycle (z_j = aug[j - (m-k)] for j >= m-k
@@ -228,7 +234,13 @@ def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
     if use_z:
         _put(state.Z[s], z.reshape(-1), live)
 
-    w, h, wnorm, wnorm_pre = _orthogonalize(V, w, s, orthog, group)
+    if traced:
+        with metrics.span("krylov.orthogonalize", basis_rows=s + 1), \
+                (metrics.device_time("krylov.orthogonalize") if w.is_cuda
+                 else contextlib.nullcontext()):
+            w, h, wnorm, wnorm_pre = _orthogonalize(V, w, s, orthog, group)
+    else:
+        w, h, wnorm, wnorm_pre = _orthogonalize(V, w, s, orthog, group)
     zero, one = torch.zeros_like(wnorm), torch.ones_like(wnorm)
     # breakdown: A z landed inside the current basis's span, and the column
     # ends the cycle
@@ -356,9 +368,10 @@ def _cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
         safe_bnorm = _safe_bnorm(b, group)
         state = _arnoldi_init(matvec, b, x0, tol, m, use_z, safe_bnorm,
                               group)
+        metrics.count("krylov.basis_bytes", state.V.nbytes + state.Z.nbytes)
     _steps(state, 0, m, lambda s: _arnoldi_step(
         state, matvec, M, b.shape, s, tol, use_z, orthog, safe_bnorm, aug,
-        group))
+        group, traced=True))
     return _host_result(state, x0, M, use_z, safe_bnorm)
 
 
@@ -403,6 +416,8 @@ def fgmres_resumable(matvec: Callable, b: torch.Tensor,
         with metrics.span("krylov.init"):
             state = _arnoldi_init(matvec, b, x0, tol, maxiter, True,
                                   safe_bnorm, group)
+            metrics.count("krylov.basis_bytes",
+                          state.V.nbytes + state.Z.nbytes)
     elif state.H.shape[1] != maxiter:
         raise ValueError(f"state is of a {state.H.shape[1]}-iteration "
                          f"cycle, maxiter is {maxiter}")
@@ -410,7 +425,7 @@ def fgmres_resumable(matvec: Callable, b: torch.Tensor,
     j_stop = maxiter if max_steps is None else min(j0 + max_steps, maxiter)
     _steps(state, j0, j_stop, lambda s: _arnoldi_step(
         state, matvec, M, b.shape, s, tol, True, orthog, safe_bnorm,
-        group=group))
+        group=group, traced=True))
     return _host_result(state, x0, M, True, safe_bnorm), state
 
 

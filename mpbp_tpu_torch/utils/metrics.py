@@ -29,6 +29,9 @@ program_trace.py`, `chip_smoke.py`'s census by region):
     krylov.step         one outer Arnoldi step: the PC apply, the matvec
       pc.replay         a graphed PC's copy in, replay and copy out; its
                         replay is the `device_time` pair "pc.replay"
+      krylov.orthogonalize   the step's projection off the basis (CGS2:
+                        four passes over its `basis_rows` rows); on a
+                        CUDA device also the `device_time` pair of its name
     krylov.result       the host's read of the state and back-substitution
   graph.capture         `GraphedApply`'s graph made at its first call
     graph.adopt         a released graph of the same structure taken over:
@@ -57,7 +60,9 @@ Counters: `pc.inner_steps`, the IF bodies the replays ran;
 `ops/_build.Launches`); `graph.pool_bytes`, the device memory the
 captures' recordings reserved for their graphs' pools; `graph.captures`
 and `graph.adoptions`, the first calls that captured a graph and those
-that took a released one over.
+that took a released one over; `krylov.basis_bytes`, the bytes of the V
+and Z bases an early-exit cycle allocates (the fixed-budget inner solves'
+bases are not counted).
 """
 
 from __future__ import annotations

@@ -126,7 +126,37 @@ def test_spans_are_profiler_ranges():
     found = collections.Counter(
         e.name() for e in prof.profiler.kineto_results.events()
         if e.name() in recorded)
-    assert found == recorded and len(recorded) == 16
+    assert found == recorded and len(recorded) == 17
+
+
+@pytest.mark.parametrize("restart", (None, 7))
+def test_one_projection_an_outer_step_and_the_basis_bytes(restart):
+    """One `krylov.orthogonalize` under each outer `krylov.step`, on the
+    step's basis rows (s + 1 in a cycle), none inside the PC (its inner
+    solves are fixed budgets); `krylov.basis_bytes` the V and Z of each
+    cycle, (m + 1 + m) vectors; the bits those of an untraced solve."""
+    M, mv, b = _build(16, "cpu")
+    maxiter = 40
+    off = krylov.fgmres(mv, b, tol=1e-8, maxiter=maxiter, M=M,
+                        restart=restart)
+    with metrics.tracing() as trace:
+        on = krylov.fgmres(mv, b, tol=1e-8, maxiter=maxiter, M=M,
+                           restart=restart)
+    assert on.iters == off.iters and torch.equal(on.x, off.x)
+    assert np.array_equal(on.res_history, off.res_history, equal_nan=True)
+    spans = trace.spans
+    proj = [s for s in spans if s.name == "krylov.orthogonalize"]
+    assert len(proj) == on.iters > 0
+    assert all(spans[s.parent].name == "krylov.step" for s in proj)
+    m = restart or maxiter
+    assert [s.attrs["basis_rows"] for s in proj] == [
+        i % m + 1 for i in range(on.iters)]
+    cycles = sum(s.name == "krylov.init" for s in spans)
+    assert cycles == -(-on.iters // m) and on.converged
+    lengths = [min(m, maxiter - m * c) for c in range(cycles)]
+    assert trace.counters["krylov.basis_bytes"] == sum(
+        (2 * k + 1) * b.numel() * b.element_size() for k in lengths)
+    assert trace.device_ms("krylov.orthogonalize") == []     # no CUDA pair
 
 
 def test_tracing_blocks_do_not_nest():
@@ -165,4 +195,20 @@ def test_traced_graphed_solve_on_the_card(cuda_device):
     replays = sum(s.name == "pc.replay" for s in trace.spans)
     assert len(ms) == replays == on.iters and min(ms) > 0
     assert 0 < trace.counters["pc.inner_steps"] <= G.gated_steps * replays
+    assert on.iters == off.iters and torch.equal(on.x, off.x)
+
+
+@pytest.mark.gpu
+def test_projection_event_pairs_on_the_card(cuda_device):
+    """A 64^2 hybrid solve: one `krylov.orthogonalize` event pair an outer
+    step, and the basis bytes of its one cycle."""
+    M, mv, b = _build(64, cuda_device)
+    G = graphs.GraphedApply(M)
+    off = _solve(G, mv, b)
+    with metrics.tracing() as trace:
+        on = _solve(G, mv, b)
+    ms = trace.device_ms("krylov.orthogonalize")
+    assert len(ms) == on.iters > 0 and min(ms) > 0
+    assert trace.counters["krylov.basis_bytes"] == (
+        2 * 100 + 1) * b.numel() * b.element_size()
     assert on.iters == off.iters and torch.equal(on.x, off.x)
