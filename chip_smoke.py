@@ -52,8 +52,8 @@ yardstick only, the port never calls it.
                seconds, K1/K2 launches, the census and the steps. The six
                solves are held to one count, one x and one census, the IF
                one to the eager one's launches and to no step run past
-               the early exit; the K1 + K11 launches a solve held to K1's
-               count when K1 made the MG's F applies too (K1_BEFORE_K11).
+               the early exit, and its K1 + K11 launches to the eager
+               one's.
                Then the A/B of the multigrid kernels K9-K12 in one
                process: the same IF graph captured inside
                `cuda_mg.plain()` (the per-op MG code) against the
@@ -75,6 +75,22 @@ yardstick only, the port never calls it.
                count and device us. The slice (5)
                and at_scale (22) run with the IF graph, as every CUDA
                solve of `drivers` and `bench_solve` does.
+ 6c. krylov_kernels - K13 (`ops/cuda_krylov.py`: the fixed-budget GMRES
+               cycle of the F inner) at the inner basis's sizes (4 n^2 for
+               n = 1024, 2048; budget 10), f32 and f64: one step (the
+               three CGS2 passes, the tail, the scale) at s = 0, 4, 9, on
+               rows 1e-2 off orthogonal and a w 1e-3 of its norm off their
+               span, held to the plain step's h, ||w''||, ||w|| and row
+               s+1 (K13_TOL_H / K13_TOL_ROW eps), then timed (CUDA events
+               behind a device sleep; at 1024^2 after an L2 flush too)
+               beside its bound, (3(s+1) + 6) vectors of 4 n^2 at 3.35
+               TB/s (and of 3(s+1) + 4: without the scale pass's read and
+               write of row s+1), and the plain step (the
+               per-op projection and tail the cycle ran before K13); the
+               cycle's start and solution (j = 10) likewise. Then one IF
+               replay of the slice's hybrid PC at 1024^2 and 2048^2: K13's
+               launches held to 5 an inner step run plus 3 an inner
+               cycle.
  6b. mg_kernels - K9-K12 (`ops/cuda_mg.py`: the pressure sweep, the
                residual's restriction and the correction, the velocity
                sweep and residual, the face transfers) against their
@@ -231,8 +247,8 @@ from mpbp_tpu_torch.models.multiphase import (divergence_operator,
                                               laplacian_operator,
                                               make_multiphase_operator,
                                               operator_from_numpy)
-from mpbp_tpu_torch.ops import (_build, cuda_dia, cuda_ell, cuda_mg,
-                                cuda_stencil, ilu)
+from mpbp_tpu_torch.ops import (_build, cuda_dia, cuda_ell, cuda_krylov,
+                                cuda_mg, cuda_stencil, ilu)
 from mpbp_tpu_torch.ops.cuda_ell import BandedELL
 from mpbp_tpu_torch.ops.dia import DIAMatrix
 from mpbp_tpu_torch.ops.spgemm import lsc_products_device
@@ -262,7 +278,8 @@ SOURCE = {"f_apply": "mpbp_tpu_torch/csrc/fused_stencil.cu",
              for k in ("p_sweep", "p_restrict", "p_correct",
                        "vel_restrict", "vel_prolong")},
           "f_sweep": "mpbp_tpu_torch/csrc/fused_stencil.cu",
-          "f_residual": "mpbp_tpu_torch/csrc/fused_stencil.cu"}
+          "f_residual": "mpbp_tpu_torch/csrc/fused_stencil.cu",
+          "krylov_step": "mpbp_tpu_torch/csrc/krylov_step.cu"}
 REPLACES = {"f_apply": "mpbp_tpu/ops/pallas_stencil.py:518",
             "a_apply": "mpbp_tpu/ops/pallas_stencil.py:490",
             "a_apply_band": "mpbp_tpu/ops/pallas_stencil.py:76",
@@ -286,7 +303,10 @@ REPLACES = {"f_apply": "mpbp_tpu/ops/pallas_stencil.py:518",
                             "(_restrict_vel, an XLA fusion)",
             "vel_prolong": "mpbp_tpu/solvers/multigrid.py:274,395-396 "
                            "(_prolong_vel and the correction, an XLA "
-                           "fusion)"}
+                           "fusion)",
+            # K13 replaces XLA's compile of the inner GMRES while_loop
+            "krylov_step": "mpbp_tpu/solvers/gmres.py:184 (_arnoldi_body, "
+                           "the fixed-budget GMRES step, compiled by XLA)"}
 # K9-K12 by entry point (ops/cuda_mg.py)
 MG_KERNEL = {"p_sweep": "K9", "p_restrict": "K10", "p_correct": "K10",
              "f_sweep": "K11", "f_residual": "K11",
@@ -317,10 +337,6 @@ SLICE_ITERS_EAGER, SLICE_L2_EAGER = 18, 2.303903e-5
 # graphs: the slice's hybrid PC apply and warm solve, eager against graph
 # replay, at these sizes
 GRAPHS_N = (512, 1024)
-# K1 launches a solve at GRAPHS_N when K1 made the MG's F applies too
-# (the per-op MG code, eager and IF graph alike, on an H100): since K11
-# took those applies, K1 + K11 launch as many
-K1_BEFORE_K11 = {512: 14575, 1024: 16198}
 # the graphs phase's A/B of the MG kernels against the per-op MG code
 # (`cuda_mg.plain()`), one graph each, in turns
 MG_AB_TURNS = ("plain", "kernels", "kernels", "plain")
@@ -340,6 +356,21 @@ MG_HIER_N = (512, 1024, 2048)
 MG_TIMED = {(512, torch.float32), (1024, torch.float32),
             (2048, torch.float32), (1024, torch.float64),
             (2048, torch.float64)}
+# krylov_kernels: K13 on the F inner's basis (4 n^2 unknowns) at these n,
+# with lsc_mg_full's inner budget, timed at these steps. The step is
+# checked on rows tilted K13_TILT off orthogonal and a w K13_OFF of its
+# norm off their span (`_k13_basis`): the second CGS pass then takes about
+# K13_TILT ||w|| off h and the projection cancels w to K13_OFF ||w||, so
+# the second pass left out (s >= 1) or the third moves h or row s+1 by
+# 1e4 eps or more. h, ||w''|| and ||w||
+# are held to the plain step's within K13_TOL_H eps of ||w||, row s+1 entry
+# by entry within K13_TOL_ROW eps of w's root-mean-square entry (sums of
+# 4-17 M products in another order); the solution to K13_SOLUTION_TOL of
+# max|dx|
+K13_N, K13_BUDGET, K13_STEPS = (1024, 2048), 10, (0, 4, 9)
+K13_TILT, K13_OFF = 1e-2, 1e-3
+K13_TOL_H, K13_TOL_ROW = 8, 64
+K13_SOLUTION_TOL = {torch.float32: 1e-3, torch.float64: 1e-11}
 # the slice's PC without the f64 refinement pass around each f32 inner
 # solve (make_lsc_pc_mixed(refine_inners=False)): the f32 inner noise
 # floors the outer FGMRES far above tol (the JAX package's docstring:
@@ -720,7 +751,8 @@ def run_slice(dev) -> tuple:
     rep = solve_multiphase(**SLICE, device=dev)
     torch.cuda.synchronize()
     return rep, time.perf_counter() - t0, {**dict(cuda_stencil.LAUNCHES),
-                                           **dict(cuda_mg.LAUNCHES)}
+                                           **dict(cuda_mg.LAUNCHES),
+                                           **dict(cuda_krylov.LAUNCHES)}
 
 
 def phase_slice(dev) -> dict:
@@ -894,7 +926,8 @@ def _graphs_solve(way: str, G, mv, b_vec, u_vec, op64) -> dict:
                                          op64.grid.dy)["l2"],
                 launches={**{k: cuda_stencil.LAUNCHES[k]
                              for k in ("f_apply", "a_apply")},
-                          **dict(cuda_mg.LAUNCHES)})
+                          **dict(cuda_mg.LAUNCHES),
+                          **dict(cuda_krylov.LAUNCHES)})
 
 
 def _op_census(phase: str, G, v, top: int = 30) -> list:
@@ -1030,11 +1063,9 @@ def phase_graphs(dev) -> dict:
                   + rows[0]["launches"]["f_sweep"]
                   + rows[0]["launches"]["f_residual"]
                   for way, rows in solves.items()}
-        say("graphs", n=n, k1_plus_k11_a_solve=json.dumps(k1_k11),
-            k1_before_k11=K1_BEFORE_K11[n])
-        check(k1_k11["eager"] == k1_k11["if"] == K1_BEFORE_K11[n],
-              f"graphs n={n}: K1 + K11 launched {k1_k11} a solve, K1 alone "
-              f"{K1_BEFORE_K11[n]} before K11")
+        say("graphs", n=n, k1_plus_k11_a_solve=json.dumps(k1_k11))
+        check(k1_k11["eager"] == k1_k11["if"],
+              f"graphs n={n}: K1 + K11 launched {k1_k11} a solve")
         ab = _mg_ab(n, M, G, v, mv, b_vec, u_vec, op64, first)
         for rows in solves.values():
             for r in rows:
@@ -1291,6 +1322,168 @@ def phase_mg_kernels(dev, graphs_out: dict) -> dict:
          checked=checked, max_abs_diff=worst,
          launches_a_solve={str(n): v for n, v in launches.items()})
     return timed
+
+
+def _k13_basis(dev, dtype, N: int, s: int):
+    """Rows 0..s of a basis and a w for the projection check, from seed s,
+    made in f64: unit rows Z + K13_TILT E Z (Z random unit rows, E random)
+    and w = c V + K13_OFF ||c|| u (c random, u a random unit vector)."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    f64 = dict(dtype=torch.float64, device=dev, generator=gen)
+    Z = torch.randn(s + 1, N, **f64)
+    Z /= Z.norm(dim=1, keepdim=True)
+    E = torch.randn(s + 1, s + 1, **f64) / (s + 1) ** 0.5
+    V = Z + K13_TILT * (E @ Z)
+    V /= V.norm(dim=1, keepdim=True)
+    c = torch.randn(s + 1, **f64)
+    u = torch.randn(N, **f64)
+    w = c @ V + K13_OFF * c.norm() / u.norm() * u
+    return V.to(dtype), w.to(dtype)
+
+
+def _k13_cycle(dev, dtype, N: int, s: int, kernels: bool):
+    """A K13 cycle on N unknowns (tol 0: no step ends it) whose rows 0..s
+    and w are `_k13_basis`'s."""
+    rows, w = _k13_basis(dev, dtype, N, s)
+    with contextlib.nullcontext() if kernels else cuda_krylov.plain():
+        cy = cuda_krylov.init(w, w, 0.0, K13_BUDGET)
+    cy.V[:s + 1] = rows
+    return cy, w
+
+
+def _k13_step_errors(cy, ref, w, s: int) -> dict:
+    """Step s of the kernels' cycle `cy` against the plain projection on
+    `ref`'s equal rows, in eps: h, ||w''|| and ||w|| of ||w||, and row
+    s+1 before its scale (the row times ||w''||) of w's root-mean-square
+    entry."""
+    m, N = K13_BUDGET, w.numel()
+    cuda_krylov.step(cy, w, s, 0.0)
+    want_w, h, wnorm, wpre = cuda_krylov.project_reference(ref.V, w, s)
+    got = cy.scal.double()
+    want = torch.cat([h, wnorm[None], wpre[None]]).double()
+    row = cy.V[s + 1].double() * got[m]
+    torch.cuda.synchronize()
+    eps, scale = torch.finfo(w.dtype).eps, float(wpre)
+    return dict(
+        h=float(torch.cat([got[:s + 1], got[m:m + 2]]).sub(want).abs().max())
+        / (eps * scale),
+        row=float((row - want_w.double()).abs().max())
+        / (eps * scale / N ** 0.5))
+
+
+def _k13_row(label: str, dtype, kern, plain, vectors: int, N: int,
+             flushed: bool, step: bool = False, **extra) -> dict:
+    """Time one K13 call and its plain version; the bound is `vectors`
+    vectors of N moved at 3.35 TB/s. A `step`'s share is also given of
+    two vectors fewer (of_bound_cgs2): the read and write of row s+1 by
+    the scale pass, which CGS2 and the tail alone do not need."""
+    ms, plain_ms = median_ms(kern), median_ms(plain)
+    ms_flushed = median_ms(kern, flush=True) if flushed else ms
+    nbytes = vectors * N * torch.finfo(dtype).bits // 8
+    res = dict(ms=ms, plain_ms=plain_ms, ms_l2_flushed=ms_flushed,
+               **bound(nbytes, 0.0, dtype), **extra)
+    if step:
+        res["of_bound_cgs2"] = res["bound_ms"] * (vectors - 2) / vectors / ms
+        extra["of_bound_cgs2"] = f"{res['of_bound_cgs2']:.3f}"
+    say("krylov_kernels", case=repr(label), dtype=_tag(dtype),
+        us=f"{ms * 1e3:.2f}", plain_us=f"{plain_ms * 1e3:.2f}",
+        bound_us=f"{res['bound_ms'] * 1e3:.2f}",
+        of_bound=f"{res['bound_ms'] / ms:.3f}",
+        us_l2_flushed=f"{ms_flushed * 1e3:.2f}",
+        of_bound_flushed=f"{res['bound_ms'] / ms_flushed:.3f}",
+        vectors=vectors, **{k: v for k, v in extra.items()})
+    return res
+
+
+def phase_krylov_kernels(dev) -> dict:
+    """K13 against its plain version at the F inner's basis sizes, timed,
+    and its launches a 1024^2 replay (module docstring, 6c)."""
+    t_phase = time.perf_counter()
+    timed = {}
+    for n in K13_N:
+        N = 4 * n * n
+        for dtype in (torch.float32, torch.float64):
+            for s in K13_STEPS:
+                cy, w = _k13_cycle(dev, dtype, N, s, kernels=True)
+                ref, _ = _k13_cycle(dev, dtype, N, s, kernels=False)
+                err = _k13_step_errors(cy, ref, w, s)
+                check(err["h"] <= K13_TOL_H and err["row"] <= K13_TOL_ROW,
+                      f"K13 n={n} {_tag(dtype)} s={s}: h, the norms or row "
+                      f"s+1 off the plain step's by {err} eps")
+                timed[(n, _tag(dtype), s)] = _k13_row(
+                    f"step s={s}, 4 x {n}^2", dtype,
+                    lambda: cuda_krylov.step(cy, w, s, 0.0),
+                    lambda: cuda_krylov.step(ref, w, s, 0.0),
+                    3 * (s + 1) + 6, N, flushed=n == 1024, step=True,
+                    err_h_eps=f"{err['h']:.3f}",
+                    err_row_eps=f"{err['row']:.3f}")
+                del cy, ref
+            # a full cycle: j = m, R = 4 I + a random strict upper part
+            m = K13_BUDGET
+            cy, w = _k13_cycle(dev, dtype, N, m - 1, kernels=True)
+            gen = torch.Generator(device=dev).manual_seed(m)
+            cy.j.fill_(m)
+            cy.H.copy_(4 * torch.eye(m + 1, m, dtype=dtype, device=dev)
+                       + torch.triu(torch.randn(m + 1, m, dtype=dtype,
+                                                device=dev, generator=gen),
+                                    1))
+            cy.g.normal_(generator=gen)
+            got = cuda_krylov.solution(cy)
+            want = cuda_krylov.solution_reference(cy)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max()) / float(want.abs().max())
+            check(err <= K13_SOLUTION_TOL[dtype],
+                  f"K13 solution n={n} {_tag(dtype)}: off by {err:.3e} of "
+                  "max|dx|")
+            timed[(n, _tag(dtype), "solution")] = _k13_row(
+                f"solution j={K13_BUDGET}, 4 x {n}^2", dtype,
+                lambda: cuda_krylov.solution(cy),
+                lambda: cuda_krylov.solution_reference(cy),
+                K13_BUDGET + 1, N, flushed=n == 1024,
+                rel_err=f"{err:.3e}")
+            b = w
+            timed[(n, _tag(dtype), "init")] = _k13_row(
+                f"start, 4 x {n}^2", dtype,
+                lambda: cuda_krylov.init(b, b, 0.0, K13_BUDGET),
+                lambda: _plain_init(b), 3, N, flushed=n == 1024)
+            del cy, w, b, got, want
+            _free_device_memory()
+    per_replay = {n: _k13_replay(dev, n) for n in K13_N}
+    emit("krylov_kernels", seconds=time.perf_counter() - t_phase,
+         timed={"/".join(map(str, k)): v for k, v in timed.items()},
+         replays=per_replay)
+    return dict(timed=timed, replay=per_replay)
+
+
+def _plain_init(b):
+    with cuda_krylov.plain():
+        return cuda_krylov.init(b, b, 0.0, K13_BUDGET)
+
+
+def _k13_replay(dev, n: int) -> dict:
+    """One IF replay of the slice's hybrid PC at n: K13's launches
+    against the inner steps and cycles it ran."""
+    op64, b_vec, _, f32, p32 = _slice_pieces(dev, n)
+    M = make_lsc_pc_mixed(op64, f32, p32)
+    G = graphs.GraphedApply(M)
+    G(b_vec)
+    _build.settle_deferred()
+    before, ran = dict(cuda_krylov.LAUNCHES), G.steps_run
+    G(b_vec)
+    torch.cuda.synchronize()
+    per = {k: cuda_krylov.LAUNCHES[k] - before[k] for k in before}
+    steps, cycles = G.steps_run - ran, per["cycle_start"]
+    say("krylov_kernels", replay=f"{n}^2 hybrid PC (IF graph)",
+        k13_launches=sum(per.values()), inner_steps=steps,
+        inner_cycles=cycles, launches=json.dumps(per))
+    check(sum(per.values()) == 5 * steps + 3 * cycles and steps > 0,
+          f"K13 launched {per} in a replay of {steps} inner steps and "
+          f"{cycles} cycles")
+    del G, M, op64, b_vec, f32, p32
+    graphs.release()
+    _free_device_memory()
+    return dict(launches=sum(per.values()), inner_steps=steps,
+                cycles=cycles)
 
 
 def phase_layers(dev) -> None:
@@ -1652,7 +1845,7 @@ def phase_sparse_kernels(dev) -> dict:
 
 def _reset_counts() -> None:
     for counts in (cuda_stencil.LAUNCHES, cuda_dia.LAUNCHES,
-                   cuda_ell.LAUNCHES, cuda_mg.LAUNCHES):
+                   cuda_ell.LAUNCHES, cuda_mg.LAUNCHES, cuda_krylov.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -2837,6 +3030,7 @@ def main() -> None:
     runs = phase_slice(dev)
     graphs_out = phase_graphs(dev)
     mg_timed = phase_mg_kernels(dev, graphs_out)
+    k13 = phase_krylov_kernels(dev)
     phase_layers(dev)
     phase_profile(dev)
     sres = phase_sparse_kernels(dev)
@@ -2894,6 +3088,13 @@ def main() -> None:
         *((name, f"{MG_KERNEL[name]}, f32, n=512: the slice's finest MG "
                  "level", mg_timed[(name, 512, "f32")],
            runs["warm"]["launches"][name]) for name in cuda_mg.LAUNCHES))]
+    # K13: one step at s = 4 on the 1024^2 F inner's basis in f32, the
+    # launches of the slice's warm solve
+    step = k13["timed"][(1024, "f32", 4)]
+    kernels.append(kernel_row(
+        "krylov_step", "K13, f32, one F-inner GMRES step at s=4 on "
+        "4 x 1024^2", dict(step, err=None, scale=None, library_ms=None),
+        sum(runs["warm"]["launches"][k] for k in cuda_krylov.LAUNCHES)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

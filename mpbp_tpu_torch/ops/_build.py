@@ -65,6 +65,18 @@ _P_RESTRICT_ARGS = [_P] * 5 + [_I32, _I32, _P, _P]
 # restriction: r, out, n, stream
 _TRANSFER_ARGS = [_P] * 3 + [_I32, _P]
 _RESTRICT_ARGS = [_P] * 2 + [_I32, _P]
+# K13: cycle_norms: b, r0, parts, n, blocks, stream; cycle_start: r0,
+# parts, V, H, cs, sn, g, hist, j, done, lost, bnorm, n, m, blocks, same,
+# tol, stream; the three CGS2 passes: V, w, done, parts, n, s, m, blocks,
+# stream; givens_tail: parts, H, cs, sn, g, hist, j, done, lost, bnorm,
+# scal, s, m, blocks, tol, lost_tol, stream; basis_scale: V, scal, n, s, m,
+# blocks, stream; cycle_solution: V, H, g, j, out, n, m, blocks, stream
+_NORMS_ARGS = [_P] * 3 + [_I64, _I32, _P]
+_START_ARGS = [_P] * 12 + [_I64, _I32, _I32, _I32, _F64, _P]
+_CGS2_ARGS = [_P] * 4 + [_I64, _I32, _I32, _I32, _P]
+_TAIL_ARGS = [_P] * 11 + [_I32, _I32, _I32, _F64, _F64, _P]
+_SCALE_ARGS = [_P] * 2 + [_I64, _I32, _I32, _I32, _P]
+_SOLUTION_ARGS = [_P] * 5 + [_I64, _I32, _I32, _P]
 
 
 def _both(name: str, args: list) -> dict:
@@ -89,6 +101,14 @@ SOURCES = {
                     **_both("ell_spmv", _ELL_ARGS),
                     **_both("ell_sweeps", _SWEEPS_ARGS),
                     **_both("ell_spmm", _SPMM_ARGS)},
+    "krylov_step": {**_both("cycle_norms", _NORMS_ARGS),
+                    **_both("cycle_start", _START_ARGS),
+                    **_both("cgs2_dots", _CGS2_ARGS),
+                    **_both("cgs2_reorth", _CGS2_ARGS),
+                    **_both("cgs2_update", _CGS2_ARGS),
+                    **_both("givens_tail", _TAIL_ARGS),
+                    **_both("basis_scale", _SCALE_ARGS),
+                    **_both("cycle_solution", _SOLUTION_ARGS)},
     "graph_cond": {"graph_if_begin": _IF_BEGIN_ARGS, "graph_if_end": [_P]},
 }
 

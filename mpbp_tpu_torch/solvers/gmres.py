@@ -28,7 +28,10 @@ by a read of `done` a step when eager, or all `maxiter` steps masked
 inside `graphs.masked()`. A step after `done` changes nothing (every
 update is masked, in place), and they back-substitute on the device, so
 x, the count and the census are the same bits in all three ways, the
-count is an early-exit run's and x is its x to rounding.
+count is an early-exit run's and x is its x to rounding. The fixed-budget
+GMRES cycle's own work (CGS2, the Givens tail, the cycle's start and
+solution) runs as kernel K13 on CUDA (`ops/cuda_krylov.py`); the
+early-exit loops keep the per-op projection and share its plain tail.
 
 Vectors may have any shape (flat or stacked grid fields); the basis adds a
 leading axis. One iteration is `_arnoldi_step` on an `ArnoldiState`, so
@@ -53,6 +56,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from mpbp_tpu_torch.ops import cuda_krylov
+from mpbp_tpu_torch.ops.cuda_krylov import over as _over, put as _put
 from mpbp_tpu_torch.solvers import graphs
 from mpbp_tpu_torch.utils import metrics
 
@@ -107,11 +112,6 @@ def _vnorm(a, group=None):
     return torch.sqrt(_vdot(a, a, group))
 
 
-def _put(dst: torch.Tensor, new: torch.Tensor, live) -> None:
-    """dst <- new where `live` (a () bool tensor), in place."""
-    torch.where(live, new, dst, out=dst)
-
-
 @dataclasses.dataclass(eq=False)
 class ArnoldiState:
     """Mid-solve FGMRES/GMRES state (port of the JAX package's
@@ -132,14 +132,6 @@ class ArnoldiState:
     hist: torch.Tensor    # (m+1,) residual estimates, NaN-padded
     done: torch.Tensor    # () convergence/breakdown flag
     lost: torch.Tensor    # () done on a column that was dropped
-
-
-def _over(w: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """w / d for a () tensor d, rounded as a division by the host scalar
-    float(d) rounds (on CUDA PyTorch multiplies by its reciprocal, on the
-    CPU it divides): the basis keeps the bits it had when the norm was
-    read back to the host."""
-    return w * torch.reciprocal(d) if w.is_cuda else w / d
 
 
 def _safe_bnorm(b: torch.Tensor, group=None) -> torch.Tensor:
@@ -222,8 +214,8 @@ def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
     recurrence never requires z_j = M(v_j), so the minimization runs over
     K_{m-k} + span{aug}. They must come last: the Krylov chain grows from
     the previous v_j, so aug-first builds it on A*aug instead of r0."""
-    V, H = state.V, state.H
-    m = H.shape[1]
+    V = state.V
+    m = state.H.shape[1]
     live = ~state.done
     k_aug = 0 if aug is None else aug.shape[0]
     if k_aug and s >= m - k_aug:
@@ -241,77 +233,8 @@ def _arnoldi_step(state: ArnoldiState, matvec: Callable, M: Callable,
             w, h, wnorm, wnorm_pre = _orthogonalize(V, w, s, orthog, group)
     else:
         w, h, wnorm, wnorm_pre = _orthogonalize(V, w, s, orthog, group)
-    zero, one = torch.zeros_like(wnorm), torch.ones_like(wnorm)
-    # breakdown: A z landed inside the current basis's span, and the column
-    # ends the cycle
-    breakdown = wnorm <= 1e-12 * wnorm_pre
-    col = torch.zeros(m + 1, dtype=V.dtype, device=V.device)
-    col[:s + 1] = h
-    col[s + 1] = torch.where(breakdown, zero, wnorm)
-    # through the rotations 0..s-1: each (c a + s b, -s a + c b) as products
-    # rounded one by one and summed, as the host's loop rounds them
-    R = torch.stack((torch.stack((state.cs, state.sn), 1),
-                     torch.stack((-state.sn, state.cs), 1)), 1)
-    for i in range(s):
-        p = R[i] * col[i:i + 2]
-        # an add, not a sum: the CPU sums f32 in f64
-        torch.add(p[:, 0], p[:, 1], out=col[i:i + 2])
-    a, b = col[s], col[s + 1]
-    rho = torch.sqrt(a * a + b * b)
-    scale = (wnorm_pre if s == 0
-             else torch.maximum(H[:s, :s].abs().amax(), wnorm_pre))
-    eps = torch.finfo(V.dtype).eps
-    # F1, a lost column: a breakdown whose rotated diagonal is rounding
-    # noise. z_s repeats a direction of Z (a variable preconditioner, or an
-    # augmentation along an earlier z), so H is singular: the estimate
-    # would read 0 and the back-substitution divide by that noise. The
-    # cycle ends at the last good column without claiming convergence (the
-    # JAX package's FGMRES does claim it here). A breakdown with H
-    # nonsingular, augmentation column or not, is an exact solve.
-    lost = live & breakdown & (rho <= max(1e-12, 100 * eps) * scale)
-    keep = live & ~lost
-
-    rho_safe = torch.where(rho == 0, one, rho)
-    c = torch.where(rho == 0, one, a / rho_safe)
-    sn = torch.where(rho == 0, zero, b / rho_safe)
-    _put(V[s + 1], _over(w, torch.where(wnorm > 0, wnorm, one)),
-         keep & ~breakdown)
-    col[s] = c * a + sn * b
-    col[s + 1].zero_()        # a Python 0 would be a host-to-device copy
-    _put(H[:, s], col, keep)
-    _put(state.cs[s], c, keep)
-    _put(state.sn[s], sn, keep)
-
-    g = state.g
-    g_next = -sn * g[s]
-    _put(g[s], c * g[s], keep)
-    _put(g[s + 1], g_next, keep)
-    res = g_next.abs()
-    _put(state.hist[s + 1], res, keep)
-    state.j += keep.to(torch.int64)
-    met = (res / safe_bnorm < tol) | breakdown
-    state.done |= lost | (keep & met)
-    state.lost |= lost
-
-
-def _device_solution(state: ArnoldiState, x0: torch.Tensor, M: Callable,
-                     use_z: bool) -> torch.Tensor:
-    """x from the Arnoldi state with no host read: the upper triangular
-    system of its first j columns solved on the device over all m columns,
-    those past j masked to the identity and their entries of y set to 0."""
-    j, H, g = state.j, state.H, state.g
-    m = H.shape[1]
-    valid = torch.arange(m, device=j.device) < j
-    R = torch.where(valid[:, None] & valid[None, :], H[:m],
-                    torch.eye(m, dtype=H.dtype, device=H.device))
-    rhs = torch.where(valid, g[:m], torch.zeros_like(g[:m]))
-    y = torch.linalg.solve_triangular(R, rhs[:, None], upper=True)[:, 0]
-    y = torch.where(valid, y, torch.zeros_like(y))
-    if use_z:
-        dx = y @ state.Z
-    else:
-        dx = M((y @ state.V[:m]).reshape(x0.shape)).reshape(-1)
-    return x0 + dx.reshape(x0.shape)
+    cuda_krylov.tail_reference(state, w, h, wnorm, wnorm_pre, s, tol,
+                               safe_bnorm)
 
 
 @metrics.spanned("krylov.result")
@@ -375,17 +298,34 @@ def _cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
     return _host_result(state, x0, M, use_z, safe_bnorm)
 
 
-def _fixed_cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
-                 tol: float, m: int, M: Callable, use_z: bool,
+def _fixed_cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None,
+                 tol: float, m: int, M: Callable,
                  orthog: str = "cgs2") -> DeviceResult:
-    """One (F)GMRES cycle of at most m steps (`graphs.loop`), x
-    back-substituted on the device."""
+    """One GMRES cycle of at most m steps (`graphs.loop`), x
+    back-substituted on the device. With CGS2 the cycle's own work runs as
+    K13 (`ops/cuda_krylov.py`: kernels on CUDA, the per-op code on the
+    CPU); CGS1 steps `_arnoldi_step`. A zero x0 (None) is not applied:
+    r0 is b."""
     _check_orthog(orthog)
-    safe_bnorm = _safe_bnorm(b)
-    state = _arnoldi_init(matvec, b, x0, tol, m, use_z, safe_bnorm)
-    graphs.loop(state.done, state.j, m, lambda s: _arnoldi_step(
-        state, matvec, M, b.shape, s, tol, use_z, orthog, safe_bnorm))
-    return DeviceResult(_device_solution(state, x0, M, use_z), state.j)
+    flat = b.reshape(-1)
+    if orthog == "cgs2":
+        r0 = flat if x0 is None else (b - matvec(x0)).reshape(-1)
+        st = cuda_krylov.init(flat, r0, tol, m)
+
+        def step(s):
+            w = matvec(M(st.V[s].reshape(b.shape))).reshape(-1)
+            cuda_krylov.step(st, w, s, tol)
+    else:
+        safe_bnorm = _safe_bnorm(b)
+        st = _arnoldi_init(matvec, b, torch.zeros_like(b) if x0 is None
+                           else x0, tol, m, False, safe_bnorm)
+
+        def step(s):
+            _arnoldi_step(st, matvec, M, b.shape, s, tol, False, orthog,
+                          safe_bnorm)
+    graphs.loop(st.done, st.j, m, step)
+    x = M(cuda_krylov.solution(st).reshape(b.shape))
+    return DeviceResult(x if x0 is None else x0 + x, st.j)
 
 
 def _check_orthog(orthog: str) -> None:
@@ -477,10 +417,8 @@ def gmres_fixed(matvec: Callable, b: torch.Tensor,
                 orthog: str = "cgs2") -> DeviceResult:
     """`gmres` (one cycle) as a fixed budget of maxiter steps
     (`graphs.loop`): x and the on-device count of an early-exit run."""
-    if x0 is None:
-        x0 = torch.zeros_like(b)
     M = _identity if M is None else M
-    return _fixed_cycle(matvec, b, x0, tol, maxiter, M, False, orthog)
+    return _fixed_cycle(matvec, b, x0, tol, maxiter, M, orthog)
 
 
 def residual_norm(matvec: Callable, b: torch.Tensor, x: torch.Tensor,

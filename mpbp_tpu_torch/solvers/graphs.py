@@ -62,10 +62,10 @@ as built (closure cells, function defaults and attributes, bound methods,
 other object is a leaf known by its identity) into a structure key: every
 non-tensor leaf by value, every tensor's type, shape, strides, offset,
 dtype and device, and which tensors share a storage; the input's shape,
-dtype and device and the recording modes (`masked()`, `cuda_mg.plain()`)
-besides. Where the retired apply's key is the same, the new apply's
-storages are copied, bit for bit, into the retired tree's (one
-`_foreach_copy_` on the current stream) and the new `GraphedApply` takes
+dtype and device and the recording modes (`masked()`, `cuda_mg.plain()`,
+`cuda_krylov.plain()`) besides. Where the retired apply's key is the same,
+the new apply's storages are copied, bit for bit, into the retired tree's
+(one `_foreach_copy_` on the current stream) and the new `GraphedApply` takes
 the graph over and replays it: no warm-up, no capture, no instantiation.
 Otherwise the retired entry is dropped and the apply is captured.
 `release()` frees the released graphs at once.
@@ -95,13 +95,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mpbp_tpu_torch.ops import (_build, cuda_dia, cuda_ell, cuda_mg,
-                                cuda_stencil)
+from mpbp_tpu_torch.ops import (_build, cuda_dia, cuda_ell, cuda_krylov,
+                                cuda_mg, cuda_stencil)
 from mpbp_tpu_torch.utils import metrics
 
 # every kernel wrapper's launch counts
 _COUNTERS = (cuda_stencil.LAUNCHES, cuda_dia.LAUNCHES, cuda_ell.LAUNCHES,
-             cuda_mg.LAUNCHES)
+             cuda_mg.LAUNCHES, cuda_krylov.LAUNCHES)
 _disabled = False
 _masked = False
 _recording: "_Recording | None" = None
@@ -420,7 +420,8 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 def _modes(v: torch.Tensor) -> tuple:
     """What a capture's recording depends on besides its apply's tree."""
-    return (tuple(v.shape), v.dtype, v.device, _masked, cuda_mg._plain)
+    return (tuple(v.shape), v.dtype, v.device, _masked, cuda_mg._plain,
+            cuda_krylov._plain)
 
 
 @dataclasses.dataclass(eq=False)

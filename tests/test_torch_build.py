@@ -26,9 +26,9 @@ def sources(tmp_path, monkeypatch):
 def test_each_source_has_its_own_library(sources):
     stems = set(_build.SOURCES)
     assert stems == {"fused_stencil", "sparse_spmv", "graph_cond",
-                     "mg_stencil"}
+                     "mg_stencil", "krylov_step"}
     paths = {stem: _build.library_path(stem) for stem in stems}
-    assert len(set(paths.values())) == 4
+    assert len(set(paths.values())) == 5
     for stem, path in paths.items():
         assert path.name.startswith(f"lib{stem}_") and path.suffix == ".so"
     with pytest.raises(ValueError):

@@ -210,17 +210,19 @@ def _cg_vs_jax(maxiter):
 
 
 @pytest.mark.parametrize("orthog", ["cgs2", "cgs1"])
-@pytest.mark.parametrize("use_z", [False, True], ids=["gmres", "fgmres"])
-def test_fixed_cycle_is_the_early_exit_cycle(orthog, use_z):
+@pytest.mark.parametrize("x0", [False, True], ids=["no_x0", "gmres"])
+def test_fixed_cycle_is_the_early_exit_cycle(orthog, x0):
     """(c) The same count and x within 1e-14 of max|x|: the steps past
-    convergence change nothing."""
+    convergence change nothing (GMRES, the fixed cycle's one kind; a zero
+    x0 given or left out)."""
     A, b = nonsymmetric(3)
     At, bt = torch.as_tensor(A), torch.as_tensor(b)
     Mt = torch.as_tensor(1.0 / np.diag(A))
-    args = (lambda v: At @ v, bt, torch.zeros_like(bt), 1e-9, N,
-            lambda v: Mt * v, use_z, orthog)
-    early = krylov._cycle(*args)
-    fixed = krylov._fixed_cycle(*args)
+    mv, M = (lambda v: At @ v), (lambda v: Mt * v)
+    early = krylov._cycle(mv, bt, torch.zeros_like(bt), 1e-9, N, M, False,
+                          orthog)
+    fixed = krylov._fixed_cycle(mv, bt, torch.zeros_like(bt) if x0 else None,
+                                1e-9, N, M, orthog)
     assert early.converged and 5 < early.iters < N
     assert int(fixed.iters) == early.iters
     scale = float(early.x.abs().max())
@@ -256,8 +258,9 @@ def test_exact_breakdown_at_the_first_step_stays_finite():
 
 def test_lost_column_inside_a_fixed_budget_stays_finite():
     """(d) F1 inside a fixed budget of 8: a variable preconditioner whose
-    later directions repeat its first loses column 2; the masked steps
-    after it leave x finite and equal to the early-exit cycle's."""
+    later directions repeat its first loses column 2 (A z_1 = 3 A z_0, so
+    H is singular); the masked steps after it leave x finite and equal to
+    the early-exit cycle's."""
     rng = np.random.default_rng(4)
     A = np.diag(np.arange(1.0, 13.0)) + rng.normal(size=(12, 12)) / 4
     At, bt = torch.as_tensor(A), torch.as_tensor(rng.normal(size=12))
@@ -273,8 +276,8 @@ def test_lost_column_inside_a_fixed_budget_stays_finite():
         return M
 
     args = (lambda v: At @ v, bt, torch.zeros_like(bt), 1e-8, 8)
-    early = krylov._cycle(*args, repeating(), True)
-    fixed = krylov._fixed_cycle(*args, repeating(), True)
+    early = krylov._cycle(*args, repeating(), False)
+    fixed = krylov._fixed_cycle(*args, repeating())
     assert not early.converged and early.iters == int(fixed.iters) == 1
     assert bool(torch.isfinite(fixed.x).all())
     assert torch.allclose(fixed.x, early.x, rtol=0, atol=1e-14)
@@ -433,10 +436,12 @@ def test_a_step_writes_the_state_in_place(method):
 
 @pytest.mark.parametrize("method", ["gmres", "cg"])
 def test_early_exit_calls_are_the_steps_taken(method):
-    """(f) trap 4: an eager early-exit solve calls the matvec once for its
-    residual and once a step taken, and M once a step (and once more for
-    gmres's solution, or cg's start), where the masked budget calls them
-    for all maxiter steps; the counts of a step body times the steps."""
+    """(f) trap 4: an eager early-exit solve calls the matvec once a step
+    taken (and once more for cg's residual: gmres_fixed's x0 is 0, so r0
+    is b and no matvec is applied to it), and M once a step (and once more
+    for gmres's solution, or cg's start), where the masked budget calls
+    them for all maxiter steps; the counts of a step body times the
+    steps."""
     maxiter = BUDGETS[method][0]
     calls = {}
     for label, mode in (("eager", contextlib.nullcontext()),
@@ -447,13 +452,15 @@ def test_early_exit_calls_are_the_steps_taken(method):
                                     M_calls=M)
         calls[label] = (len(mv), len(M))
     assert 0 < iters < maxiter
-    assert calls["eager"] == (1 + iters, iters + 1)
-    assert calls["masked"] == (1 + maxiter, maxiter + 1)
+    residual = int(method == "cg")
+    assert calls["eager"] == (residual + iters, iters + 1)
+    assert calls["masked"] == (residual + maxiter, maxiter + 1)
 
 
 def test_early_exit_counts_a_lost_step():
     """(f) F1 in the eager loop: the step that loses its column runs (and
-    is not counted in iters), and the loop stops after it."""
+    is not counted in iters), and the loop stops after it: M is called
+    for the two steps and the solution."""
     rng = np.random.default_rng(4)
     A = np.diag(np.arange(1.0, 13.0)) + rng.normal(size=(12, 12)) / 4
     At, bt = torch.as_tensor(A), torch.as_tensor(rng.normal(size=12))
@@ -467,8 +474,8 @@ def test_early_exit_counts_a_lost_step():
         return 3.0 * first[0]
 
     res = krylov._fixed_cycle(lambda v: At @ v, bt, torch.zeros_like(bt),
-                              1e-8, 8, M, True)
-    assert int(res.iters) == 1 and len(steps) == 2
+                              1e-8, 8, M)
+    assert int(res.iters) == 1 and len(steps) == 3
 
 
 def test_a_count_read_settles_the_deferred_launches(monkeypatch):
