@@ -220,6 +220,7 @@ before the last is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import os
 import statistics
@@ -1342,24 +1343,24 @@ def _k13_basis(dev, dtype, N: int, s: int):
 
 
 def _k13_cycle(dev, dtype, N: int, s: int, kernels: bool):
-    """A K13 cycle on N unknowns (tol 0: no step ends it) whose rows 0..s
-    and w are `_k13_basis`'s."""
+    """A K13 cycle on N unknowns (tol 0: no step ends it), its state and
+    scratch, whose rows 0..s and w are `_k13_basis`'s."""
     rows, w = _k13_basis(dev, dtype, N, s)
     with contextlib.nullcontext() if kernels else cuda_krylov.plain():
-        cy = cuda_krylov.init(w, w, 0.0, K13_BUDGET)
+        cy, work = cuda_krylov.init(w, w, 0.0, K13_BUDGET)
     cy.V[:s + 1] = rows
-    return cy, w
+    return cy, work, w
 
 
-def _k13_step_errors(cy, ref, w, s: int) -> dict:
+def _k13_step_errors(cy, work, ref, w, s: int) -> dict:
     """Step s of the kernels' cycle `cy` against the plain projection on
     `ref`'s equal rows, in eps: h, ||w''|| and ||w|| of ||w||, and row
     s+1 before its scale (the row times ||w''||) of w's root-mean-square
     entry."""
     m, N = K13_BUDGET, w.numel()
-    cuda_krylov.step(cy, w, s, 0.0)
-    want_w, h, wnorm, wpre = cuda_krylov.project_reference(ref.V, w, s)
-    got = cy.scal.double()
+    cuda_krylov.step(cy, work, w, s, 0.0)
+    want_w, h, wnorm, wpre = cuda_krylov.project(ref.V, w, s)
+    got = work.scal.double()
     want = torch.cat([h, wnorm[None], wpre[None]]).double()
     row = cy.V[s + 1].double() * got[m]
     torch.cuda.synchronize()
@@ -1404,23 +1405,24 @@ def phase_krylov_kernels(dev) -> dict:
         N = 4 * n * n
         for dtype in (torch.float32, torch.float64):
             for s in K13_STEPS:
-                cy, w = _k13_cycle(dev, dtype, N, s, kernels=True)
-                ref, _ = _k13_cycle(dev, dtype, N, s, kernels=False)
-                err = _k13_step_errors(cy, ref, w, s)
+                cy, work, w = _k13_cycle(dev, dtype, N, s, kernels=True)
+                ref, ref_work, _ = _k13_cycle(dev, dtype, N, s,
+                                              kernels=False)
+                err = _k13_step_errors(cy, work, ref, w, s)
                 check(err["h"] <= K13_TOL_H and err["row"] <= K13_TOL_ROW,
                       f"K13 n={n} {_tag(dtype)} s={s}: h, the norms or row "
                       f"s+1 off the plain step's by {err} eps")
                 timed[(n, _tag(dtype), s)] = _k13_row(
                     f"step s={s}, 4 x {n}^2", dtype,
-                    lambda: cuda_krylov.step(cy, w, s, 0.0),
-                    lambda: cuda_krylov.step(ref, w, s, 0.0),
+                    lambda: cuda_krylov.step(cy, work, w, s, 0.0),
+                    lambda: cuda_krylov.step(ref, ref_work, w, s, 0.0),
                     3 * (s + 1) + 6, N, flushed=n == 1024, step=True,
                     err_h_eps=f"{err['h']:.3f}",
                     err_row_eps=f"{err['row']:.3f}")
-                del cy, ref
+                del cy, work, ref, ref_work
             # a full cycle: j = m, R = 4 I + a random strict upper part
             m = K13_BUDGET
-            cy, w = _k13_cycle(dev, dtype, N, m - 1, kernels=True)
+            cy, _, w = _k13_cycle(dev, dtype, N, m - 1, kernels=True)
             gen = torch.Generator(device=dev).manual_seed(m)
             cy.j.fill_(m)
             cy.H.copy_(4 * torch.eye(m + 1, m, dtype=dtype, device=dev)
@@ -2878,15 +2880,18 @@ def _cycle_counts(outer) -> tuple[dict, object]:
     counts and the function to put back."""
     counts = dict(cycles=0, augmented=0, lost=0)
     cycle = krylov._cycle
+    signature = inspect.signature(cycle)
 
-    def counted(matvec, b, x0, tol, m, M, use_z, orthog="cgs2", aug=None,
-                group=None):
-        res = cycle(matvec, b, x0, tol, m, M, use_z, orthog, aug, group)
-        if matvec is not outer:
+    def counted(*args, **kwargs):
+        res = cycle(*args, **kwargs)
+        call = signature.bind(*args, **kwargs)
+        call.apply_defaults()
+        if call.arguments["matvec"] is not outer:
             return res
         counts["cycles"] += 1
-        counts["augmented"] += aug is not None
-        counts["lost"] += not res.converged and res.iters < m
+        counts["augmented"] += call.arguments["aug"] is not None
+        counts["lost"] += (not res.converged
+                           and res.iters < call.arguments["m"])
         return res
 
     krylov._cycle = counted

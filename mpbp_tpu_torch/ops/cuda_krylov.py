@@ -21,15 +21,17 @@ stay outside them:
   * `solution`: the j x j triangular solve and dx = sum_{i<j} y_i V_i
     over the rows that exist (1 launch a cycle).
 
-The plain versions are the per-op code the cycle ran before, moved here:
-`project_reference` is `gmres._orthogonalize`'s CGS2 without a process
-group, `tail_reference` the Arnoldi step's tail (which the early-exit
-loops' `_arnoldi_step` runs too), `init_reference` and
-`solution_reference` `_arnoldi_init` and the device back-substitution
-(the cycle's fields filled in place, V zeroed). The kernels' projection
-sums in its own order, so h and the basis differ from the plain version's
-at rounding level; the tail rounds each operation as the plain tail does
-and gives its bits on the same h, ||w|| and ||w|| before the projection.
+The Krylov layer has one Arnoldi state, `ArnoldiState` (made by
+`new_state`), which the early-exit loops of `solvers/gmres.py` and this
+cycle both step; `init` returns the cycle's safe ||b|| and the kernels'
+scratch beside it (`Scratch`). The plain versions are the per-op code of
+both loops: `start` (a fresh cycle from r0, V and Z zero-filled),
+`project` (CGS2, with a process group's all-reduce where one is given),
+`tail_reference` (the Arnoldi step's tail) and `solution_reference` (the
+device back-substitution). The kernels' projection sums in its own
+order, so h and the basis differ from the plain version's at rounding
+level; the tail rounds each operation as the plain tail does and gives
+its bits on the same h, ||w|| and ||w|| before the projection.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernels or raises, after checking dtype, shape, device and
@@ -44,8 +46,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from mpbp_tpu_torch.ops import _build
 
@@ -88,83 +92,113 @@ def over(w: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return w * torch.reciprocal(d) if w.is_cuda else w / d
 
 
-@dataclasses.dataclass(eq=False)
-class Cycle:
-    """One fixed-budget GMRES cycle of m steps on flat vectors of n: the
-    fields of `gmres.ArnoldiState` but Z, in the working dtype (j: int64,
-    done/lost: bool), the safe ||b|| of the stop test, and the kernels'
-    scratch (None where the cycle runs its plain version): `parts`
-    (2m+2, blocks), the passes' per-block partial sums, and `scal`
-    (m+4,), the step's h (s+1 values), ||w''|| at m, ||w|| before the
-    projection at m+1, and row s+1's scale and its flag
-    (`csrc/krylov_step.cu`)."""
+def allsum(t: torch.Tensor, group) -> torch.Tensor:
+    """t summed over the ranks of `group` (in place), or t itself."""
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
 
-    V: torch.Tensor       # (m+1, n) orthonormal basis
+
+def vnorm(a: torch.Tensor, group=None) -> torch.Tensor:
+    return torch.sqrt(allsum(torch.sum(a * a), group))
+
+
+def safe_bnorm(b: torch.Tensor, group=None) -> torch.Tensor:
+    """||b|| for the stop test, 1 where b is 0."""
+    b_norm = vnorm(b, group)
+    return torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
+
+
+@dataclasses.dataclass(eq=False)
+class ArnoldiState:
+    """Mid-solve FGMRES/GMRES state (port of the JAX package's
+    `ArnoldiState`). Resuming with the same (matvec, b, x0, maxiter, M)
+    continues the identical Krylov recurrence. Every field is a tensor on
+    the vectors' device, in the working dtype (j: int64, done/lost: bool).
+    A step advances the state in place: every field stays the tensor
+    `new_state` made (an IF body that did not run must leave the state
+    readable, `solvers/graphs.py`)."""
+
+    j: torch.Tensor       # () iterations completed
+    V: torch.Tensor       # (m+1, N) orthonormal basis
+    Z: torch.Tensor       # (m or 0, N) flexible preconditioned basis
     H: torch.Tensor       # (m+1, m) rotated Hessenberg (R factor)
     cs: torch.Tensor      # (m,) Givens cosines
     sn: torch.Tensor      # (m,) Givens sines
     g: torch.Tensor       # (m+1,) rotated rhs
     hist: torch.Tensor    # (m+1,) residual estimates, NaN-padded
-    j: torch.Tensor       # () iterations completed
     done: torch.Tensor    # () convergence/breakdown flag
     lost: torch.Tensor    # () done on a column that was dropped
+
+
+class Scratch(NamedTuple):
+    """What a K13 cycle keeps beside its state: the safe ||b|| of the stop
+    test, and the kernels' scratch (None where the cycle runs its plain
+    version): `parts` (2m+2, blocks), the passes' per-block partial sums,
+    and `scal` (m+4,), the step's h (s+1 values), ||w''|| at m, ||w||
+    before the projection at m+1, and row s+1's scale and its flag
+    (`csrc/krylov_step.cu`)."""
+
     bnorm: torch.Tensor   # () ||b||, 1 where b is 0
     parts: torch.Tensor | None = None
     scal: torch.Tensor | None = None
 
 
-def _cycle(n: int, m: int, dtype, device, blocks: int = 0) -> Cycle:
-    """A cycle's tensors, unfilled; with the kernels' scratch for `blocks`
-    blocks, if any."""
+def new_state(n: int, m: int, z_rows: int, dtype, device) -> ArnoldiState:
+    """The tensors of an m-step cycle on n unknowns with z_rows rows of Z,
+    unfilled."""
     e = functools.partial(torch.empty, dtype=dtype, device=device)
     flag = functools.partial(torch.empty, (), dtype=torch.bool,
                              device=device)
-    return Cycle(e((m + 1, n)), e((m + 1, m)), e(m), e(m), e(m + 1),
-                 e(m + 1), torch.empty((), dtype=torch.int64, device=device),
-                 flag(), flag(), e(()),
-                 e((2 * m + 2, blocks)) if blocks else None,
-                 e(m + 4) if blocks else None)
+    return ArnoldiState(torch.empty((), dtype=torch.int64, device=device),
+                        e((m + 1, n)), e((z_rows, n)), e((m + 1, m)), e(m),
+                        e(m), e(m + 1), e(m + 1), flag(), flag())
+
+
+def _scratch(m: int, dtype, device, blocks: int) -> Scratch:
+    """The kernels' `Scratch` of an m-step cycle on `blocks` blocks,
+    unfilled."""
+    e = functools.partial(torch.empty, dtype=dtype, device=device)
+    return Scratch(e(()), e((2 * m + 2, blocks)), e(m + 4))
 
 
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
-def init_reference(cy: Cycle, b: torch.Tensor, r0: torch.Tensor,
-                   tol: float) -> None:
-    """Plain K13 start (`gmres._arnoldi_init` from the residual r0, and
-    `gmres._safe_bnorm(b)`), into the fields of `cy`."""
-    b_norm = torch.sqrt(torch.sum(b * b))
-    cy.bnorm.copy_(torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm))
-    beta = torch.sqrt(torch.sum(r0 * r0))
-    cy.V.zero_()
-    cy.V[0] = over(r0, torch.where(beta > 0, beta, torch.ones_like(beta)))
-    for t in (cy.H, cy.cs, cy.sn, cy.g, cy.j, cy.lost):
+def start(st: ArnoldiState, r0: torch.Tensor, bnorm: torch.Tensor,
+          tol: float, group=None) -> None:
+    """A fresh cycle from the residual r0 (any shape), into the fields of
+    `st`: V and Z zero-filled, V[0] = r0 / ||r0||, done where ||r0|| is
+    under tol of the safe ||b|| `bnorm`."""
+    beta = vnorm(r0, group)
+    for t in (st.j, st.V, st.Z, st.H, st.cs, st.sn, st.g, st.lost):
         t.zero_()
-    cy.g[0] = beta
-    cy.hist.fill_(float("nan"))
-    cy.hist[0] = beta
-    cy.done.copy_(beta / cy.bnorm < tol)
+    st.V[0] = over(r0, torch.where(beta > 0, beta, torch.ones_like(beta))
+                   ).reshape(-1)
+    st.g[0] = beta
+    st.hist.fill_(float("nan"))
+    st.hist[0] = beta
+    st.done.copy_(beta / bnorm < tol)
 
 
-def project_reference(V: torch.Tensor, w: torch.Tensor, s: int):
-    """Plain K13 projection: CGS2 of w off rows 0..s of V (`gmres.
-    _orthogonalize` without a group): (w'', h, ||w''||, ||w|| before)."""
+def project(V: torch.Tensor, w: torch.Tensor, s: int, group=None):
+    """CGS2 of w off rows 0..s of V: (w'', h, ||w''||, ||w|| before)."""
     Vj = V[:s + 1]
-    # [h1, ||w||^2] in one product, then h2, then the new norm
-    hw = torch.cat([Vj @ w, torch.sum(w * w)[None]])
+    # [h1, ||w||^2] in one reduction, then h2, then the new norm
+    hw = allsum(torch.cat([Vj @ w, torch.sum(w * w)[None]]), group)
     h1 = hw[:-1]
     w = w - h1 @ Vj
-    h2 = Vj @ w
+    h2 = allsum(Vj @ w, group)
     w = w - h2 @ Vj
-    return w, h1 + h2, torch.sqrt(torch.sum(w * w)), torch.sqrt(hw[-1])
+    return w, h1 + h2, vnorm(w, group), torch.sqrt(hw[-1])
 
 
-def tail_reference(st, w: torch.Tensor, h: torch.Tensor, wnorm, wnorm_pre,
-                   s: int, tol: float, safe_bnorm) -> None:
+def tail_reference(st: ArnoldiState, w: torch.Tensor, h: torch.Tensor,
+                   wnorm, wnorm_pre, s: int, tol: float, safe_bnorm) -> None:
     """Plain K13 tail: step s of a cycle after its projection onto rows
-    0..s gave (w, h, ||w||, ||w|| before), on `st` (a `Cycle` or a
-    `gmres.ArnoldiState`), in place. Every update is taken only where the
-    state was not done, so a step after done changes nothing."""
+    0..s gave (w, h, ||w||, ||w|| before), on `st`, in place. Every update
+    is taken only where the state was not done, so a step after done
+    changes nothing."""
     V, H = st.V, st.H
     m = H.shape[1]
     live = ~st.done
@@ -226,13 +260,7 @@ def _lost_tol(dtype) -> float:
     return max(1e-12, 100 * torch.finfo(dtype).eps)
 
 
-def step_reference(cy: Cycle, w: torch.Tensor, s: int, tol: float) -> None:
-    """Plain K13 step s: the projection, then the tail."""
-    w, h, wnorm, wnorm_pre = project_reference(cy.V, w, s)
-    tail_reference(cy, w, h, wnorm, wnorm_pre, s, tol, cy.bnorm)
-
-
-def solution_reference(st) -> torch.Tensor:
+def solution_reference(st: ArnoldiState) -> torch.Tensor:
     """Plain K13 solution: the upper triangular system of the first j
     columns solved over all m, those past j masked to the identity and
     their entries of y set to 0; returns y @ V[:m]."""
@@ -250,57 +278,59 @@ def solution_reference(st) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
-def init(b: torch.Tensor, r0: torch.Tensor, tol: float, m: int) -> Cycle:
+def init(b: torch.Tensor, r0: torch.Tensor, tol: float,
+         m: int) -> tuple[ArnoldiState, Scratch]:
     """K13: a cycle of m steps on b (flat) from the residual r0 (b itself
-    where x0 is 0). Kernels on CUDA, plain on CPU."""
+    where x0 is 0), with no Z. Kernels on CUDA, plain on CPU."""
     _check_vector(b, "b")
     _check_like(r0, b, "r0")
     if not 1 <= m <= MAX_BUDGET:
         raise ValueError(f"the budget m must be 1..{MAX_BUDGET}, got {m}")
     n = b.numel()
+    st = new_state(n, m, 0, b.dtype, b.device)
     if _plain or b.device.type == "cpu":
-        cy = _cycle(n, m, b.dtype, b.device)
-        init_reference(cy, b, r0, tol)
-        return cy
+        work = Scratch(safe_bnorm(b))
+        start(st, r0, work.bnorm, tol)
+        return st, work
     _device(b)
     blocks = _blocks(n, b)
-    cy = _cycle(n, m, b.dtype, b.device, blocks)
+    work = _scratch(m, b.dtype, b.device, blocks)
     _launch("cycle_norms", b, b.data_ptr(), r0.data_ptr(),
-            cy.parts.data_ptr(), n, blocks)
-    _launch("cycle_start", b, r0.data_ptr(), cy.parts.data_ptr(),
-            *_ptrs(cy, "V", "H", "cs", "sn", "g", "hist", "j", "done",
-                   "lost", "bnorm"),
+            work.parts.data_ptr(), n, blocks)
+    _launch("cycle_start", b, r0.data_ptr(), work.parts.data_ptr(),
+            *_ptrs(st.V, st.H, st.cs, st.sn, st.g, st.hist, st.j, st.done,
+                   st.lost, work.bnorm),
             n, m, blocks, int(r0.data_ptr() == b.data_ptr()), tol)
-    return cy
+    return st, work
 
 
-def step(cy: Cycle, w: torch.Tensor, s: int, tol: float) -> None:
+def step(st: ArnoldiState, work: Scratch, w: torch.Tensor, s: int,
+         tol: float) -> None:
     """K13: step s of the cycle after its matvec gave w (flat): CGS2 of w
     off rows 0..s, then the tail, in place."""
-    n, m = cy.V.shape[1], cy.H.shape[1]
-    _check_like(w, cy.V[0], "w")
+    n, m = st.V.shape[1], st.H.shape[1]
+    _check_like(w, st.V[0], "w")
     if not 0 <= s < m:
         raise ValueError(f"step {s} of a {m}-step cycle")
-    if cy.parts is None:
-        step_reference(cy, w, s, tol)
+    if work.parts is None:
+        tail_reference(st, *project(st.V, w, s), s, tol, work.bnorm)
         return
     _device(w)
-    blocks = cy.parts.shape[1]
-    V, parts = cy.V.data_ptr(), cy.parts.data_ptr()
+    blocks = work.parts.shape[1]
+    V, parts = st.V.data_ptr(), work.parts.data_ptr()
     for name in ("cgs2_dots", "cgs2_reorth", "cgs2_update"):
-        _launch(name, w, V, w.data_ptr(), cy.done.data_ptr(), parts, n, s, m,
+        _launch(name, w, V, w.data_ptr(), st.done.data_ptr(), parts, n, s, m,
                 blocks)
     _launch("givens_tail", w, parts,
-            *_ptrs(cy, "H", "cs", "sn", "g", "hist", "j", "done", "lost",
-                   "bnorm", "scal"),
+            *_ptrs(st.H, st.cs, st.sn, st.g, st.hist, st.j, st.done,
+                   st.lost, work.bnorm, work.scal),
             s, m, blocks, tol, _lost_tol(w.dtype))
-    _launch("basis_scale", w, V, cy.scal.data_ptr(), n, s, m, blocks)
+    _launch("basis_scale", w, V, work.scal.data_ptr(), n, s, m, blocks)
 
 
-def solution(st) -> torch.Tensor:
+def solution(st: ArnoldiState) -> torch.Tensor:
     """K13: dx = sum_{i<j} y_i V_i (flat) with R y = g on the first j
-    columns of `st` (a `Cycle`, or a `gmres.ArnoldiState` without Z).
-    Kernel on CUDA, plain on CPU."""
+    columns of `st` (its Z unread). Kernel on CUDA, plain on CPU."""
     V = st.V
     if V.dtype not in _SUFFIX:
         raise TypeError(f"dtype {V.dtype} not supported (float32/float64)")
@@ -361,8 +391,8 @@ def _blocks(n: int, x: torch.Tensor) -> int:
     return max(1, min(_BLOCKS_AN_SM * _sms(index), -(-packs // _THREADS)))
 
 
-def _ptrs(cy: Cycle, *names) -> list[int]:
-    return [getattr(cy, name).data_ptr() for name in names]
+def _ptrs(*tensors) -> list[int]:
+    return [t.data_ptr() for t in tensors]
 
 
 def _launch(name: str, x: torch.Tensor, *args) -> None:

@@ -14,14 +14,16 @@
   * Flexible preconditioning stores Z_j = M(v_j), since the inner solves
     (inner Krylov, multigrid) vary from call to call.
 
-Two kinds of loop drive the one Arnoldi step. The early-exit loops
-(`fgmres`, `gmres`, `fgmres_resumable`, `cg`, restarted cycles) read the
-`done` flag once an iteration and build a `KrylovResult` of host types
-after the loop, from one read of the state; they back-substitute on the
-host, in the working dtype, so their iterates have the bits of a solver
-that keeps H on the host (at tol 1e-10 the card's sharded 1024^2 count
-sits at the f64 floor and follows those bits). The fixed-budget loops
-(`gmres_fixed`, `cg_fixed`: the inner solves of the preconditioners) are
+Two kinds of loop step one Arnoldi state (`ArnoldiState`, made and
+started from r0 by `ops/cuda_krylov.py`; CGS2 is its `project`, the
+Givens tail its `tail_reference`). The early-exit loops (`fgmres`,
+`gmres`, `fgmres_resumable`, `cg`, restarted cycles) read the `done` flag
+once an iteration and build a `KrylovResult` of host types after the
+loop, from one read of the state; they back-substitute on the host, in
+the working dtype, so their iterates have the bits of a solver that keeps
+H on the host (at tol 1e-10 the card's sharded 1024^2 count sits at the
+f64 floor and follows those bits). The fixed-budget loops (`gmres_fixed`,
+`cg_fixed`: the inner solves of the preconditioners, from x0 = 0) are
 `lax.while_loop` with its static bound: `solvers/graphs.loop` steps them
 while ~done & (j < m), through a CUDA-graph IF node a step under capture,
 by a read of `done` a step when eager, or all `maxiter` steps masked
@@ -29,12 +31,13 @@ inside `graphs.masked()`. A step after `done` changes nothing (every
 update is masked, in place), and they back-substitute on the device, so
 x, the count and the census are the same bits in all three ways, the
 count is an early-exit run's and x is its x to rounding. The fixed-budget
-GMRES cycle's own work (CGS2, the Givens tail, the cycle's start and
-solution) runs as kernel K13 on CUDA (`ops/cuda_krylov.py`); the
-early-exit loops keep the per-op projection and share its plain tail.
+GMRES cycle (CGS2, no Z) runs its own work (the start, CGS2, the Givens
+tail, the solution) as kernel K13 on CUDA, the plain versions on the CPU;
+the early-exit loops keep the per-op projection (CGS2 or CGS1) with a
+process group, and Z.
 
 Vectors may have any shape (flat or stacked grid fields); the basis adds a
-leading axis. One iteration is `_arnoldi_step` on an `ArnoldiState`, so
+leading axis. One iteration of an early-exit loop is `_arnoldi_step`, so
 `fgmres_resumable` can stop after any iteration and resume.
 
 Under a row-sharded mesh (`parallel/sharding.py`) each rank holds its band
@@ -54,10 +57,12 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from mpbp_tpu_torch.ops import cuda_krylov
-from mpbp_tpu_torch.ops.cuda_krylov import over as _over, put as _put
+# ArnoldiState: made by the lower layer, re-exported here under its name
+from mpbp_tpu_torch.ops.cuda_krylov import (
+    ArnoldiState, allsum as _allsum, put as _put, safe_bnorm as _safe_bnorm,
+    vnorm as _vnorm)
 from mpbp_tpu_torch.solvers import graphs
 from mpbp_tpu_torch.utils import metrics
 
@@ -97,83 +102,28 @@ def _identity(v):
     return v
 
 
-def _allsum(t: torch.Tensor, group) -> torch.Tensor:
-    """t summed over the ranks of `group` (in place), or t itself."""
-    if group is not None:
-        dist.all_reduce(t, group=group)
-    return t
-
-
 def _vdot(a, b, group=None):
     return _allsum(torch.sum(a * b), group)
-
-
-def _vnorm(a, group=None):
-    return torch.sqrt(_vdot(a, a, group))
-
-
-@dataclasses.dataclass(eq=False)
-class ArnoldiState:
-    """Mid-solve FGMRES/GMRES state (port of the JAX package's
-    `ArnoldiState`). Resuming with the same (matvec, b, x0, maxiter, M)
-    continues the identical Krylov recurrence. Every field is a tensor on
-    the vectors' device, in the working dtype (j: int64, done/lost: bool).
-    A step advances the state in place: every field stays the tensor
-    `_arnoldi_init` made (an IF body that did not run must leave the
-    state readable, `solvers/graphs.py`)."""
-
-    j: torch.Tensor       # () iterations completed
-    V: torch.Tensor       # (m+1, N) orthonormal basis
-    Z: torch.Tensor       # (m or 0, N) flexible preconditioned basis
-    H: torch.Tensor       # (m+1, m) rotated Hessenberg (R factor)
-    cs: torch.Tensor      # (m,) Givens cosines
-    sn: torch.Tensor      # (m,) Givens sines
-    g: torch.Tensor       # (m+1,) rotated rhs
-    hist: torch.Tensor    # (m+1,) residual estimates, NaN-padded
-    done: torch.Tensor    # () convergence/breakdown flag
-    lost: torch.Tensor    # () done on a column that was dropped
-
-
-def _safe_bnorm(b: torch.Tensor, group=None) -> torch.Tensor:
-    b_norm = _vnorm(b, group)
-    return torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
 
 
 def _arnoldi_init(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
                   tol: float, m: int, use_z: bool,
                   safe_bnorm, group=None) -> ArnoldiState:
-    """Fresh Arnoldi state of an m-iteration cycle from the residual at x0."""
-    N = b.numel()
-    kw = dict(dtype=b.dtype, device=b.device)
+    """Fresh Arnoldi state of an m-iteration cycle from the residual at x0
+    (`cuda_krylov.start`: V and Z zero-filled)."""
     r0 = b - matvec(x0)
-    beta = _vnorm(r0, group)
-    V = torch.zeros((m + 1, N), **kw)
-    Z = torch.zeros((m if use_z else 0, N), **kw)
-    V[0] = _over(r0, torch.where(beta > 0, beta, torch.ones_like(beta))
-                 ).reshape(-1)
-    g = torch.zeros(m + 1, **kw)
-    g[0] = beta
-    hist = torch.full((m + 1,), float("nan"), **kw)
-    hist[0] = beta
-    return ArnoldiState(
-        torch.zeros((), dtype=torch.int64, device=b.device), V, Z,
-        torch.zeros((m + 1, m), **kw), torch.zeros(m, **kw),
-        torch.zeros(m, **kw), g, hist, beta / safe_bnorm < tol,
-        torch.zeros((), dtype=torch.bool, device=b.device))
+    state = cuda_krylov.new_state(b.numel(), m, m if use_z else 0, b.dtype,
+                                  b.device)
+    cuda_krylov.start(state, r0, safe_bnorm, tol, group)
+    return state
 
 
 def _orthogonalize(V: torch.Tensor, w: torch.Tensor, s: int, orthog: str,
                    group):
     """Project w off basis rows 0..s: (w, h, ||w||, ||w|| before)."""
-    Vj = V[:s + 1]
     if orthog == "cgs2":
-        # [h1, ||w||^2] in one reduction, then h2, then the new norm
-        hw = _allsum(torch.cat([Vj @ w, torch.sum(w * w)[None]]), group)
-        h1 = hw[:-1]
-        w = w - h1 @ Vj
-        h2 = _allsum(Vj @ w, group)
-        w = w - h2 @ Vj
-        return w, h1 + h2, _vnorm(w, group), torch.sqrt(hw[-1])
+        return cuda_krylov.project(V, w, s, group)
+    Vj = V[:s + 1]
     # CGS1: one fused reduction [V; w]^T w gives the projections and
     # ||w||^2; the new norm comes from the Pythagorean identity, with a
     # second pass where the projection removed more than 1/sqrt(2) of w
@@ -298,34 +248,20 @@ def _cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
     return _host_result(state, x0, M, use_z, safe_bnorm)
 
 
-def _fixed_cycle(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None,
-                 tol: float, m: int, M: Callable,
-                 orthog: str = "cgs2") -> DeviceResult:
-    """One GMRES cycle of at most m steps (`graphs.loop`), x
-    back-substituted on the device. With CGS2 the cycle's own work runs as
-    K13 (`ops/cuda_krylov.py`: kernels on CUDA, the per-op code on the
-    CPU); CGS1 steps `_arnoldi_step`. A zero x0 (None) is not applied:
-    r0 is b."""
-    _check_orthog(orthog)
+def _fixed_cycle(matvec: Callable, b: torch.Tensor, tol: float, m: int,
+                 M: Callable) -> DeviceResult:
+    """One GMRES cycle of at most m steps from x0 = 0 (`graphs.loop`), its
+    own work K13's (`ops/cuda_krylov.py`: kernels on CUDA, the plain
+    versions on the CPU): r0 is b, and x = M(solution) is
+    back-substituted on the device."""
     flat = b.reshape(-1)
-    if orthog == "cgs2":
-        r0 = flat if x0 is None else (b - matvec(x0)).reshape(-1)
-        st = cuda_krylov.init(flat, r0, tol, m)
+    st, work = cuda_krylov.init(flat, flat, tol, m)
 
-        def step(s):
-            w = matvec(M(st.V[s].reshape(b.shape))).reshape(-1)
-            cuda_krylov.step(st, w, s, tol)
-    else:
-        safe_bnorm = _safe_bnorm(b)
-        st = _arnoldi_init(matvec, b, torch.zeros_like(b) if x0 is None
-                           else x0, tol, m, False, safe_bnorm)
-
-        def step(s):
-            _arnoldi_step(st, matvec, M, b.shape, s, tol, False, orthog,
-                          safe_bnorm)
+    def step(s):
+        w = matvec(M(st.V[s].reshape(b.shape))).reshape(-1)
+        cuda_krylov.step(st, work, w, s, tol)
     graphs.loop(st.done, st.j, m, step)
-    x = M(cuda_krylov.solution(st).reshape(b.shape))
-    return DeviceResult(x if x0 is None else x0 + x, st.j)
+    return DeviceResult(M(cuda_krylov.solution(st).reshape(b.shape)), st.j)
 
 
 def _check_orthog(orthog: str) -> None:
@@ -411,14 +347,14 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
                       group=group)
 
 
-def gmres_fixed(matvec: Callable, b: torch.Tensor,
-                x0: torch.Tensor | None = None, tol: float = 1e-8,
-                maxiter: int = 100, M: Callable | None = None,
-                orthog: str = "cgs2") -> DeviceResult:
-    """`gmres` (one cycle) as a fixed budget of maxiter steps
-    (`graphs.loop`): x and the on-device count of an early-exit run."""
+def gmres_fixed(matvec: Callable, b: torch.Tensor, tol: float = 1e-8,
+                maxiter: int = 100, M: Callable | None = None
+                ) -> DeviceResult:
+    """`gmres` (one cycle, x0 = 0, CGS2) as a fixed budget of maxiter
+    steps (`graphs.loop`): x and the on-device count of an early-exit
+    run."""
     M = _identity if M is None else M
-    return _fixed_cycle(matvec, b, x0, tol, maxiter, M, orthog)
+    return _fixed_cycle(matvec, b, tol, maxiter, M)
 
 
 def residual_norm(matvec: Callable, b: torch.Tensor, x: torch.Tensor,

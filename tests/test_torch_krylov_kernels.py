@@ -2,11 +2,13 @@
 cycle's own work (CGS2, the Givens tail, the cycle's start and solution)
 as a few launches a step.
 
-On the CPU each wrapper runs its plain version, held here bit for bit
-(`torch.equal`, NaN where NaN) against the per-op code it was moved from:
-`gmres._arnoldi_init`, `gmres._arnoldi_step` (CGS2, no Z) over every step
-of a cycle, done, breakdown and lost-column states included, and the
-device back-substitution `_device_solution` as it stood (kept below). Then
+On the CPU each wrapper runs its plain version on the one Arnoldi state,
+held here bit for bit (`torch.equal`, NaN where NaN) against the early-exit
+loops' start `gmres._arnoldi_init` (r0 = b and r0 = b - A x) and step
+`gmres._arnoldi_step` (CGS2, no Z) over every step of a cycle, done,
+breakdown and lost-column states included, so that both loops drive one
+step alike, and against the device back-substitution `_device_solution`
+as it stood before K13 (kept below). Then
 `gmres_fixed` through the wrappers against the JAX package's `gmres` on F
 with its velocity V-cycle, n = 16 and 64, f64: the same count, x within
 1e-9 of max|x| (the projections' sums and XLA's round apart, by ~1e-13
@@ -57,7 +59,7 @@ torch.set_num_threads(1)
 
 F32, F64 = torch.float32, torch.float64
 DTYPES = [F64, F32]
-FIELDS = ("V", "H", "cs", "sn", "g", "hist", "j", "done", "lost")
+FIELDS = ("j", "V", "Z", "H", "cs", "sn", "g", "hist", "done", "lost")
 M_BUDGET = 8
 
 
@@ -119,10 +121,10 @@ def test_plain_init_is_arnoldi_init(dtype, x0):
     x = torch.full_like(b, 0.25) if x0 else torch.zeros_like(b)
     want = krylov._arnoldi_init(mv, b, x, 1e-6, M_BUDGET, False,
                                 krylov._safe_bnorm(b))
-    got = cuda_krylov.init(b, b - mv(x) if x0 else b, 1e-6, M_BUDGET)
-    assert got.parts is None and got.scal is None
+    got, work = cuda_krylov.init(b, b - mv(x) if x0 else b, 1e-6, M_BUDGET)
+    assert work.parts is None and work.scal is None
     assert_same_state(got, want, "init")
-    assert torch.equal(got.bnorm, krylov._safe_bnorm(b))
+    assert torch.equal(work.bnorm, krylov._safe_bnorm(b))
 
 
 @pytest.mark.parametrize("case", ["converges", "breakdown", "lost",
@@ -135,11 +137,11 @@ def test_plain_step_is_arnoldi_step(dtype, case):
     tol = 1e-6 if dtype == F64 else 1e-4
     want = krylov._arnoldi_init(mv, b, torch.zeros_like(b), tol, M_BUDGET,
                                 False, krylov._safe_bnorm(b))
-    got = cuda_krylov.init(b, b, tol, M_BUDGET)
+    got, work = cuda_krylov.init(b, b, tol, M_BUDGET)
     for s in range(M_BUDGET):
         krylov._arnoldi_step(want, mv, M, b.shape, s, tol, False, "cgs2",
                              krylov._safe_bnorm(b))
-        cuda_krylov.step(got, mv(M(got.V[s])), s, tol)
+        cuda_krylov.step(got, work, mv(M(got.V[s])), s, tol)
         assert_same_state(got, want, s)
     assert bool(got.done)
     j, lost = int(got.j), bool(got.lost)
@@ -157,18 +159,16 @@ def test_plain_solution_is_the_device_solution(dtype):
     mv, b, M = system("converges", dtype)
     x0 = torch.full_like(b, 0.5)
     for stop in range(M_BUDGET + 1):
-        st = cuda_krylov.init(b, b - mv(x0), 1e-30, M_BUDGET)
+        st, work = cuda_krylov.init(b, b - mv(x0), 1e-30, M_BUDGET)
         for s in range(stop):
-            cuda_krylov.step(st, mv(M(st.V[s])), s, 1e-30)
+            cuda_krylov.step(st, work, mv(M(st.V[s])), s, 1e-30)
         assert int(st.j) == stop
         got = x0 + M(cuda_krylov.solution(st))
         assert torch.equal(got, _device_solution_before(st, x0, M))
 
 
-@pytest.mark.parametrize("orthog", ["cgs2", "cgs1"])
-def test_fixed_cycle_calls_the_wrappers(orthog, monkeypatch):
-    """CGS2 runs the whole cycle through K13's wrappers; CGS1 steps
-    `_arnoldi_step` and takes K13's solution."""
+def test_fixed_cycle_calls_the_wrappers(monkeypatch):
+    """The fixed cycle runs whole through K13's wrappers."""
     calls = []
     for name in ("init", "step", "solution"):
         real = getattr(cuda_krylov, name)
@@ -178,12 +178,10 @@ def test_fixed_cycle_calls_the_wrappers(orthog, monkeypatch):
             return _real(*a, **k)
         monkeypatch.setattr(cuda_krylov, name, spy)
     mv, b, M = system("converges", F64)
-    res = krylov.gmres_fixed(mv, b, tol=1e-8, maxiter=20, M=M, orthog=orthog)
+    res = krylov.gmres_fixed(mv, b, tol=1e-8, maxiter=20, M=M)
     steps = int(res.iters)
     assert 2 < steps < 20
-    want = (["init", *["step"] * steps, "solution"] if orthog == "cgs2"
-            else ["solution"])
-    assert calls == want
+    assert calls == ["init", *["step"] * steps, "solution"]
     assert cuda_krylov.LAUNCHES in graphs._COUNTERS
 
 
@@ -261,18 +259,19 @@ def _call(name: str, device: str, fault: str | None = None):
     if name == "init":
         return lambda: cuda_krylov.init(vec(), x, 1e-6, 4)
     if device == "meta":
-        cy = cuda_krylov._cycle(NV, 4, F64, device, 1)
+        st = cuda_krylov.new_state(NV, 4, 0, F64, device)
+        work = cuda_krylov._scratch(4, F64, device, 1)
     else:
-        cy = cuda_krylov.init(vec(), vec(), 1e-6, 4)
+        st, work = cuda_krylov.init(vec(), vec(), 1e-6, 4)
     if name == "step":
-        return lambda: cuda_krylov.step(cy, x, 0, 1e-6)
+        return lambda: cuda_krylov.step(st, work, x, 0, 1e-6)
     if fault == "dtype":
-        cy.V = cy.V.to(torch.float16)
+        st.V = st.V.to(torch.float16)
     elif fault == "contiguous":
-        cy.V = cy.V.t().contiguous().t()
+        st.V = st.V.t().contiguous().t()
     elif fault == "shape":
-        cy.V = cy.V[None]
-    return lambda: cuda_krylov.solution(cy)
+        st.V = st.V[None]
+    return lambda: cuda_krylov.solution(st)
 
 
 WRAPPERS = ["init", "step", "solution"]
@@ -304,9 +303,9 @@ def test_budget_and_step_are_checked(s):
     for m in (0, cuda_krylov.MAX_BUDGET + 1):
         with pytest.raises(ValueError, match="budget"):
             cuda_krylov.init(b, b, 1e-6, m)
-    cy = cuda_krylov.init(b, b, 1e-6, 4)
+    st, work = cuda_krylov.init(b, b, 1e-6, 4)
     with pytest.raises(ValueError, match="step"):
-        cuda_krylov.step(cy, b, s, 1e-6)
+        cuda_krylov.step(st, work, b, s, 1e-6)
 
 
 def test_krylov_step_argtypes_match_the_c_signatures():
@@ -343,17 +342,19 @@ def cuda_device():
 
 
 def _random_cycle(dev, dtype, n, m, s, seed, kernels: bool):
-    """A cycle after s steps of made-up history: rotations of random
-    angles, an upper triangular H, a rotated rhs; not done."""
+    """A cycle (its state and scratch) after s steps of made-up history:
+    rotations of random angles, an upper triangular H, a rotated rhs; not
+    done."""
     rng = np.random.default_rng(seed)
 
     def r(*shape):
         return torch.as_tensor(rng.normal(size=shape), dtype=dtype,
                                device=dev)
 
-    blocks = cuda_krylov._blocks(n, torch.empty(1, dtype=dtype,
-                                                device=dev)) if kernels else 0
-    cy = cuda_krylov._cycle(n, m, dtype, dev, blocks)
+    blocks = cuda_krylov._blocks(n, torch.empty(1, dtype=dtype, device=dev))
+    cy = cuda_krylov.new_state(n, m, 0, dtype, dev)
+    work = (cuda_krylov._scratch(m, dtype, dev, blocks) if kernels else
+            cuda_krylov.Scratch(torch.empty((), dtype=dtype, device=dev)))
     cy.V.copy_(r(m + 1, n))
     cy.H.copy_(torch.triu(r(m + 1, m)))
     cy.H[:, s:] = 0
@@ -369,8 +370,8 @@ def _random_cycle(dev, dtype, n, m, s, seed, kernels: bool):
     cy.j.fill_(s)
     cy.done.fill_(False)
     cy.lost.fill_(False)
-    cy.bnorm.fill_(3.0)
-    return cy
+    work.bnorm.fill_(3.0)
+    return cy, work
 
 
 TAIL_CASES = ["plain", "breakdown", "lost", "done"]
@@ -396,12 +397,13 @@ def test_tail_is_the_torch_tail(cuda_device, dtype, s, m, case):
     if case == "lost":
         h.zero_()
         ww.zero_()
-    got = _random_cycle(cuda_device, dtype, n, m, s, 3, kernels=True)
-    want = _random_cycle(cuda_device, dtype, n, m, s, 3, kernels=False)
+    got, kern = _random_cycle(cuda_device, dtype, n, m, s, 3, kernels=True)
+    want, plain = _random_cycle(cuda_device, dtype, n, m, s, 3,
+                                kernels=False)
     if case == "done":
         got.done.fill_(True)
         want.done.fill_(True)
-    parts = got.parts.zero_()
+    parts = kern.parts.zero_()
     parts[:s + 1, 0] = h
     parts[s + 1, 0] = ww
     parts[2 * m + 1, 0] = ss
@@ -410,14 +412,14 @@ def test_tail_is_the_torch_tail(cuda_device, dtype, s, m, case):
     tol = 1e-4
     blocks = parts.shape[1]
     cuda_krylov._launch("givens_tail", w, parts.data_ptr(),
-                        *cuda_krylov._ptrs(got, "H", "cs", "sn", "g", "hist",
-                                           "j", "done", "lost", "bnorm",
-                                           "scal"),
+                        *cuda_krylov._ptrs(got.H, got.cs, got.sn, got.g,
+                                           got.hist, got.j, got.done,
+                                           got.lost, kern.bnorm, kern.scal),
                         s, m, blocks, tol, cuda_krylov._lost_tol(dtype))
     cuda_krylov._launch("basis_scale", w, got.V.data_ptr(),
-                        got.scal.data_ptr(), n, s, m, blocks)
+                        kern.scal.data_ptr(), n, s, m, blocks)
     cuda_krylov.tail_reference(want, w, h, torch.sqrt(ss), torch.sqrt(ww), s,
-                               tol, want.bnorm)
+                               tol, plain.bnorm)
     torch.cuda.synchronize()
     assert_same_state(got, want, case)
     assert (int(got.j), bool(got.lost)) == {
@@ -460,7 +462,7 @@ def _projection_inputs(dev, dtype, N, s, seed):
 def test_projection_agrees_with_plain(cuda_device, dtype, n, m, s):
     """CGS2 on rows 0..s at the inner solve's length 4 n^2 (budget 60:
     rows past a register tile): the kernels' h, ||w''||, ||w|| and row
-    s+1 (before its scale) against `project_reference`. The inputs make
+    s+1 (before its scale) against the plain `project`. The inputs make
     every pass count: a second pass left out would move h by about
     TILT ||w|| (s >= 1), a third by ||w||."""
     if dtype == F64 and n == 2048 and s != 9:
@@ -468,16 +470,16 @@ def test_projection_agrees_with_plain(cuda_device, dtype, n, m, s):
     N = 4 * n * n
     rows, w = _projection_inputs(cuda_device, dtype, N, s, seed=s)
     blocks = cuda_krylov._blocks(N, w)
-    cy = cuda_krylov._cycle(N, m, dtype, cuda_device, blocks)
+    cy = cuda_krylov.new_state(N, m, 0, dtype, cuda_device)
+    work = cuda_krylov._scratch(m, dtype, cuda_device, blocks)
     cy.V[:s + 1] = rows
     cy.done.fill_(False)
     for name in ("cgs2_dots", "cgs2_reorth", "cgs2_update"):
         cuda_krylov._launch(name, w, cy.V.data_ptr(), w.data_ptr(),
-                            cy.done.data_ptr(), cy.parts.data_ptr(), N, s,
+                            cy.done.data_ptr(), work.parts.data_ptr(), N, s,
                             m, blocks)
-    want_w, want_h, want_norm, want_pre = cuda_krylov.project_reference(
-        cy.V, w, s)
-    parts = cy.parts.double()
+    want_w, want_h, want_norm, want_pre = cuda_krylov.project(cy.V, w, s)
+    parts = work.parts.double()
     got = torch.cat([parts[:s + 1].sum(1) + parts[m + 1:m + 2 + s].sum(1),
                      parts[2 * m + 1].sum().sqrt()[None],
                      parts[s + 1].sum().sqrt()[None]])
