@@ -52,8 +52,8 @@ yardstick only, the port never calls it.
                seconds, K1/K2 launches, the census and the steps. The six
                solves are held to one count, one x and one census, the IF
                one to the eager one's launches and to no step run past
-               the early exit, and its K1 + K11 launches to the eager
-               one's.
+               the early exit, and its F applies (K1, K11, two a K14
+               launch) to the eager one's.
                Then the A/B of the multigrid kernels K9-K12 in one
                process: the same IF graph captured inside
                `cuda_mg.plain()` (the per-op MG code) against the
@@ -91,9 +91,10 @@ yardstick only, the port never calls it.
                replay of the slice's hybrid PC at 1024^2 and 2048^2: K13's
                launches held to 5 an inner step run plus 3 an inner
                cycle.
- 6b. mg_kernels - K9-K12 (`ops/cuda_mg.py`: the pressure sweep, the
-               residual's restriction and the correction, the velocity
-               sweep and residual, the face transfers) against their
+ 6b. mg_kernels - K9-K12 and K14 (`ops/cuda_mg.py`: the pressure
+               sweep, the residual's restriction and the correction, the
+               velocity sweep and residual, a pair of velocity sweeps,
+               the face transfers) against their
                plain versions at every level size of the slice's 512^2, 1024^2 and 2048^2 hierarchies
                (pressure and velocity), f32 and f64, on seeded inputs:
                each held bit-equal (max|kernel - plain| printed); timed
@@ -104,8 +105,12 @@ yardstick only, the port never calls it.
                once at 3.35 TB/s), its share, and the plain version's us;
                the library time where one PyTorch call computes the same
                function (K10's correction: a broadcast add on 2x2-blocked
-               views), none for the others. Then the launches of each a
-               512^2 and a 1024^2 solve (from the graphs phase).
+               views), none for the others. K14 also against two K11
+               launches at the finest level of the 1024^2 and 2048^2
+               hierarchies, f32 and f64, each after an L2 flush: us and
+               shares of their bounds (19 planes a pair, 38 for the two).
+               Then the launches of each a 512^2 and a 1024^2 solve (from
+               the graphs phase).
   7. layers  - one more solve with synchronized timers around the outer
                matvec, the F and pressure inner solves and the PC apply.
   8. profile - two outer iterations of the warm solve under torch.profiler:
@@ -220,6 +225,7 @@ before the last is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import inspect
 import json
 import os
@@ -279,6 +285,7 @@ SOURCE = {"f_apply": "mpbp_tpu_torch/csrc/fused_stencil.cu",
              for k in ("p_sweep", "p_restrict", "p_correct",
                        "vel_restrict", "vel_prolong")},
           "f_sweep": "mpbp_tpu_torch/csrc/fused_stencil.cu",
+          "f_sweep2": "mpbp_tpu_torch/csrc/fused_stencil.cu",
           "f_residual": "mpbp_tpu_torch/csrc/fused_stencil.cu",
           "krylov_step": "mpbp_tpu_torch/csrc/krylov_step.cu"}
 REPLACES = {"f_apply": "mpbp_tpu/ops/pallas_stencil.py:518",
@@ -298,6 +305,8 @@ REPLACES = {"f_apply": "mpbp_tpu/ops/pallas_stencil.py:518",
                          "prolong_cell(ec), an XLA fusion)",
             "f_sweep": "mpbp_tpu/solvers/multigrid.py:368 (_vel_smooth's "
                        "fori_loop body, an XLA fusion)",
+            "f_sweep2": "mpbp_tpu/solvers/multigrid.py:368 (two iterations "
+                        "of _vel_smooth's fori_loop body)",
             "f_residual": "mpbp_tpu/solvers/multigrid.py:389-391 "
                           "(vel_v_cycle's residual, an XLA fusion)",
             "vel_restrict": "mpbp_tpu/solvers/multigrid.py:269 "
@@ -308,9 +317,9 @@ REPLACES = {"f_apply": "mpbp_tpu/ops/pallas_stencil.py:518",
             # K13 replaces XLA's compile of the inner GMRES while_loop
             "krylov_step": "mpbp_tpu/solvers/gmres.py:184 (_arnoldi_body, "
                            "the fixed-budget GMRES step, compiled by XLA)"}
-# K9-K12 by entry point (ops/cuda_mg.py)
+# K9-K12 and K14 by entry point (ops/cuda_mg.py)
 MG_KERNEL = {"p_sweep": "K9", "p_restrict": "K10", "p_correct": "K10",
-             "f_sweep": "K11", "f_residual": "K11",
+             "f_sweep": "K11", "f_sweep2": "K14", "f_residual": "K11",
              "vel_restrict": "K12", "vel_prolong": "K12"}
 NF = {"f_apply": 4, "a_apply": 5}
 # kernels phase: K1 at sizes that are no multiple of anything (8, 50, 1000)
@@ -354,6 +363,8 @@ PROJECTION_SUBS = 2          # b - mean(b) and x - mean(x)
 # slice's hierarchies at these n, timed at the finest level where
 # (n, dtype) is listed
 MG_HIER_N = (512, 1024, 2048)
+# ... and K14 timed against two K11 launches at the finest level of these
+K14_AGAINST_K11_N = (1024, 2048)
 MG_TIMED = {(512, torch.float32), (1024, torch.float32),
             (2048, torch.float32), (1024, torch.float64),
             (2048, torch.float64)}
@@ -781,7 +792,12 @@ def phase_slice(dev) -> dict:
               and bool(torch.isfinite(rep.x).all()),
               "solution has the wrong shape or non-finite values")
         for k in ("f_apply", "a_apply", *cuda_mg.LAUNCHES):
-            check(launches[k] > 0, f"kernel {k} was not launched by the solve")
+            if k == "f_sweep":      # the MG's sweeps all run in K14 pairs
+                check(launches[k] == 0,
+                      f"{launches[k]} single K11 sweeps in the solve")
+            else:
+                check(launches[k] > 0,
+                      f"kernel {k} was not launched by the solve")
         runs[label] = dict(seconds=secs, launches=launches, iters=rep.iters)
     runs["no_refine"] = _slice_no_refine(dev, runs["warm"]["iters"])
     return runs
@@ -1060,9 +1076,7 @@ def phase_graphs(dev) -> dict:
                           f"F-inner steps; the eager one launched "
                           f"{first['launches']} and needs "
                           f"{r['f_steps_needed']}")
-        k1_k11 = {way: rows[0]["launches"]["f_apply"]
-                  + rows[0]["launches"]["f_sweep"]
-                  + rows[0]["launches"]["f_residual"]
+        k1_k11 = {way: _f_applies(rows[0]["launches"])
                   for way, rows in solves.items()}
         say("graphs", n=n, k1_plus_k11_a_solve=json.dumps(k1_k11))
         check(k1_k11["eager"] == k1_k11["if"],
@@ -1086,8 +1100,17 @@ def phase_graphs(dev) -> dict:
     return out
 
 
+def _f_applies(launches: dict) -> int:
+    """The F applies of a solve's launches: K1's, K11's (a sweep or a
+    residual each) and K14's (two sweeps each). The plain MG code applies
+    F by K1 once a sweep, so the count is the same with and without the
+    MG kernels."""
+    return (launches["f_apply"] + launches["f_sweep"]
+            + 2 * launches["f_sweep2"] + launches["f_residual"])
+
+
 def _plain(call):
-    """call() with the MG's per-op code in place of K9-K12."""
+    """call() with the MG's per-op code in place of K9-K12 and K14."""
     with cuda_mg.plain():
         return call()
 
@@ -1122,9 +1145,8 @@ def _mg_ab(n: int, M, G, v, mv, b_vec, u_vec, op64, eager_solve) -> dict:
             k: (json.dumps(x) if isinstance(x, dict) else f"{x:.4f}"
                 if k == "solve_s" else f"{x:.1f}" if isinstance(x, float)
                 else x) for k, x in r.items()})
-    k1 = {way: rs[0]["solve_launches"]["f_apply"]
-          + rs[0]["solve_launches"]["f_sweep"]
-          + rs[0]["solve_launches"]["f_residual"] for way, rs in rows.items()}
+    k1 = {way: _f_applies(rs[0]["solve_launches"])
+          for way, rs in rows.items()}
     check(k1["plain"] == k1["kernels"],
           f"graphs n={n}: K1 + K11 a solve differ, plain and kernels {k1}")
     del Gp
@@ -1268,6 +1290,9 @@ def _mg_calls(plevels, vlevels, dtype, rng) -> list:
             ("f_sweep", n, lambda x=x, b=b, f=f, lv=lv: cuda_mg.f_sweep(
                 f.tn, f.wnx, f.wny, x, b, lv.inv_d, f.params, f.dx, f.dy),
              19 * nn, (FLOP_PER_POINT[4] + 12) * nn, None),
+            ("f_sweep2", n, lambda x=x, b=b, f=f, lv=lv: cuda_mg.f_sweep2(
+                f.tn, f.wnx, f.wny, x, b, lv.inv_d, f.params, f.dx, f.dy),
+             19 * nn, 2 * (FLOP_PER_POINT[4] + 12) * nn, None),
             ("f_residual", n, lambda x=x, b=b, f=f: cuda_mg.f_residual(
                 f.tn, f.wnx, f.wny, x, b, f.params, f.dx, f.dy),
              15 * nn, (FLOP_PER_POINT[4] + 4) * nn, None),
@@ -1278,14 +1303,45 @@ def _mg_calls(plevels, vlevels, dtype, rng) -> list:
     return out
 
 
+def _k14_against_k11(vlevels, dtype, rng) -> dict:
+    """K14 against two K11 launches at a velocity hierarchy's finest level,
+    each timed after an L2 flush: device us, and the pair's share of its
+    bound (19 planes, each input read once and x2 written once) beside the
+    two launches' share of theirs (twice that)."""
+    lv = vlevels[0]
+    n, f = lv.n, lv.flux
+    x, b = (torch.as_tensor(rng.normal(size=(4, n, n)), dtype=dtype,
+                            device=lv.diag.device) for _ in range(2))
+    sweep = functools.partial(cuda_mg.f_sweep, f.tn, f.wnx, f.wny)
+    pair = functools.partial(cuda_mg.f_sweep2, f.tn, f.wnx, f.wny, x, b,
+                             lv.inv_d, f.params, f.dx, f.dy)
+
+    def two():
+        y = sweep(x, b, lv.inv_d, f.params, f.dx, f.dy)
+        return sweep(y, b, lv.inv_d, f.params, f.dx, f.dy)
+
+    check(torch.equal(pair(), two()),
+          f"K14 n={n} {_tag(dtype)}: the pair differs from two K11 launches")
+    pair_ms, two_ms = median_ms(pair, flush=True), median_ms(two, flush=True)
+    least = bound(19 * n * n * x.element_size(),
+                  2 * (FLOP_PER_POINT[4] + 12) * n * n, dtype)["bound_ms"]
+    row = dict(pair_us=pair_ms * 1e3, two_k11_us=two_ms * 1e3,
+               bound_us=least * 1e3, pair_of_bound=least / pair_ms,
+               two_k11_of_bound=2 * least / two_ms)
+    say("mg_kernels", k14_against_two_k11=f"n={n} {_tag(dtype)}",
+        **{k: f"{v:.3f}" for k, v in row.items()})
+    return row
+
+
 def phase_mg_kernels(dev, graphs_out: dict) -> dict:
-    """K9-K12 against their plain versions at every level of the slice's
-    hierarchies, timed at the finest levels, and their launches a solve
-    (module docstring, 6b)."""
+    """K9-K12 and K14 against their plain versions at every level of the
+    slice's hierarchies, timed at the finest levels, K14 against two K11
+    launches at 1024^2 and 2048^2, and their launches a solve (module
+    docstring, 6b)."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(0)
     p = {k: SLICE[k] for k in ("c", "d", "xi", "eta_n", "eta_s")}
-    worst, sizes, timed, checked = {}, {}, {}, 0
+    worst, sizes, timed, checked, pairs = {}, {}, {}, 0, {}
     for nh in MG_HIER_N:
         for dtype in (torch.float32, torch.float64):
             op = make_multiphase_operator(nh, **p, dtype=dtype, device=dev)
@@ -1308,6 +1364,9 @@ def phase_mg_kernels(dev, graphs_out: dict) -> dict:
                         lambda call=call: _plain(call),
                         elems * got.element_size(), "mg_kernels",
                         flops=ops, lib=lib)
+            if nh in K14_AGAINST_K11_N:
+                pairs[f"{nh} {_tag(dtype)}"] = _k14_against_k11(vlev, dtype,
+                                                                rng)
             del op, plev, vlev
             _free_device_memory()
     say("mg_kernels", checked=checked, all_bit_equal=True,
@@ -1320,7 +1379,7 @@ def phase_mg_kernels(dev, graphs_out: dict) -> dict:
         say("mg_kernels", solve=f"{n}^2 hybrid (IF graph)",
             launches=json.dumps(launches[n]))
     emit("mg_kernels", seconds=time.perf_counter() - t_phase,
-         checked=checked, max_abs_diff=worst,
+         checked=checked, max_abs_diff=worst, k14_against_two_k11=pairs,
          launches_a_solve={str(n): v for n, v in launches.items()})
     return timed
 

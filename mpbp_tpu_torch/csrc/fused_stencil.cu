@@ -15,6 +15,9 @@
 //                                   _vel_smooth, :368-376, and vel_v_cycle's
 //                                   residual): K1's F x, then
 //                                   x + inv_d (b - F x), or b - F x
+//   f_sweep2_f32 / _f64          <- two iterations of that loop body (K14):
+//                                   two K11 sweeps in one pass, the first
+//                                   sweep's x kept in shared memory
 //
 // The per-point arithmetic is written once (point_apply), term for term as
 // mpbp_tpu/models/fused.py writes it (flux form: differences first, then
@@ -25,8 +28,9 @@
 // expressions on registers.
 //
 // Bound: HBM bytes. K1 reads 7 planes and writes 4, K2-K4 read 8 and write
-// 5, K11 reads 15 (its residual form 11) and writes 4; ~190-250 operations
-// per point are far below the card's flop/byte balance. One pass, no
+// 5, K11 reads 15 (its residual form 11) and writes 4, K14 the same for
+// two sweeps; ~190-250 operations per point are far below the card's
+// flop/byte balance. One pass, no
 // coefficient planes, each output written once.
 //
 // K1, K2 and K3 are one kernel body, window_apply, over NF = 4 or 5 planes
@@ -672,6 +676,189 @@ staged_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
   }
 }
 
+// K14's CTA by type: f32 8 warps, at least 3 CTAs an SM (ptxas then
+// keeps it within 80 registers, no spill); f64 16 warps (its 128
+// registers leave one CTA of 512 threads an SM). The fastest of the shapes
+// timed on the H100 (PERF.md), with pair_tile's tiles.
+template <typename T>
+struct PairCTA {
+  static constexpr int kThreads = sizeof(T) == 4 ? 256 : 512;
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 1;
+};
+
+// K14's shared memory: theta and x1 on the tile and a ring around it, 5
+// planes (theta, then x1's 4) of (tr + 2) rows (tile rows -1 .. tr) of
+// ld = tc + 4 elements (tile columns -2 .. tc + 1, so that each of K11's
+// pairs of even and odd columns keeps its 8- or 16-byte alignment).
+template <typename T>
+struct PairLayout {
+  int ld, plane;
+  __host__ __device__ PairLayout(int tr, int tc)
+      : ld(tc + 4), plane((tr + 2) * (tc + 4)) {}
+  __host__ size_t bytes() const { return 5 * sizeof(T) * plane; }
+};
+
+// Where K14 reads theta's and the state's windows: global memory, as K11
+// does (theta and the input x), or the tile's theta and x1 in shared
+// memory (`at`: the windows' top-left element).
+template <typename T, int P, bool kVec>
+struct GlobalWindows {
+  const T* tn;
+  const T* x;
+  size_t plane;
+  __device__ __forceinline__ void load(const size_t (&rows)[3], int c0,
+                                       const int (&cc)[P + 2],
+                                       T (&th)[3][P + 2],
+                                       T (&w)[4][3][P + 2]) const {
+    load_window<T, P, kVec>(tn, rows, c0, cc, th);
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      load_window<T, P, kVec>(x + f * plane, rows, c0, cc, w[f]);
+  }
+};
+template <typename T, int P>
+struct SharedWindows {
+  const T* s;
+  int plane, ld, at;
+  __device__ __forceinline__ void load(const size_t (&)[3], int,
+                                       const int (&)[P + 2],
+                                       T (&th)[3][P + 2],
+                                       T (&w)[4][3][P + 2]) const {
+    smem_window<T, P>(s, at, ld, th);
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      smem_window<T, P>(s + (f + 1) * plane, at, ld, w[f]);
+  }
+};
+
+// One K11 sweep at the P points c0.. of row r (both in [0, n), c0 even, n
+// even): f_sweep_kernel's code, point_apply on window_points' windows, then
+// its epilogue x + inv_d (b - F x) rounded op by op, with the windows of
+// theta and the state from `src`; th0 returns theta at the points. Written
+// apart from window_points, so that K1-K3 and K11 compile as they did.
+template <typename T, int P, bool kVec, typename S>
+__device__ __forceinline__ void pair_sweep(
+    const S& src, const T* __restrict__ wnx, const T* __restrict__ wny,
+    const T* __restrict__ b, const T* __restrict__ inv_d,
+    const GridRows& map, const Coefs<T>& k, int r, int c0, size_t& orow,
+    T (&o)[4][P], T (&th0)[P]) {
+  const int n = map.n;
+  const size_t plane = map.out_plane();
+  size_t rows[3];
+  map.rows(r, rows, orow);
+  int cc[P + 2];
+#pragma unroll
+  for (int q = 0; q < P + 2; ++q) {
+    const int c = c0 - 1 + q;   // in [-1, n - 1 + P]
+    cc[q] = c < 0 ? c + n : (c < n ? c : c % n);
+  }
+  T th[3][P + 2], xw[4][3][P + 2];
+  src.load(rows, c0, cc, th, xw);
+  T wx[P], wy[P];
+  load_points<T, P, kVec>(wnx + orow, c0, cc, wx);
+  load_points<T, P, kVec>(wny + orow, c0, cc, wy);
+  T fx[4][P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    T oj[4];
+    point_apply<T, 4>(WinPlane<T, P>{th, j}, WinPlane<T, P>{xw[0], j},
+                      WinPlane<T, P>{xw[1], j}, WinPlane<T, P>{xw[2], j},
+                      WinPlane<T, P>{xw[3], j}, WinPlane<T, P>{xw[0], j},
+                      wx[j], wy[j], k, oj);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) fx[f][j] = oj[f];
+    th0[j] = th[1][1 + j];
+  }
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    T bv[P], dv[P];
+    if constexpr (kVec) {
+      RowVec<T, P>::load(b + f * plane + orow + c0, bv);
+      RowVec<T, P>::load(inv_d + f * plane + orow + c0, dv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        bv[j] = __ldg(b + f * plane + orow + c0 + j);
+        dv[j] = __ldg(inv_d + f * plane + orow + c0 + j);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      o[f][j] = radd(xw[f][1][1 + j], rmul(dv[j], rsub(bv[j], fx[f][j])));
+  }
+}
+
+// K14 (f_sweep2): two K11 sweeps in one pass, x1 = x0 + inv_d (b - F x0),
+// x2 = x1 + inv_d (b - F x1), on the periodic n x n grid, n even. Each
+// CTA takes a (tr, tc) tile at K11's pairs of points. Sweep 1 computes x1
+// on the tile and a ring of one point around it (the pairs of columns
+// c0 - 2 .. c0 + tc + 1, rows r0 - 1 .. r0 + tr, wrapped) into shared
+// memory, with theta there, reading theta and x0 as K11 does; sweep 2
+// reads both windows from shared memory and writes x2. Every pair runs
+// K11's code (pair_sweep) on its own window values, so x2 has the bits of
+// two K11 launches; the loops are not unrolled, so no pair's expressions
+// meet another's. HBM moves 15 planes in and 4 out for the two sweeps
+// instead of 30 and 8: x1 never leaves the SM, and the ring's second reads
+// and sweep 2's reads of Wnx, Wny, b and inv_d hit L1 or L2.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(PairCTA<T>::kThreads,
+                                  PairCTA<T>::kMinBlocks)
+f_sweep2_kernel(const T* __restrict__ tn, const T* __restrict__ wnx,
+                const T* __restrict__ wny, const T* __restrict__ x,
+                const T* __restrict__ b, const T* __restrict__ inv_d,
+                T* __restrict__ out, GridRows map, int tr, int tc,
+                Coefs<T> k) {
+  constexpr int P = 2;
+  constexpr int kThreads = PairCTA<T>::kThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);
+  const PairLayout<T> lay(tr, tc);
+  const int n = map.n;
+  const int r0 = blockIdx.y * tr, c0 = blockIdx.x * tc;
+  // a tile row or column in [-2, n + tc) on the periodic grid
+  auto wrap = [n](int i) {
+    i %= n;
+    return i < 0 ? i + n : i;
+  };
+
+  const GlobalWindows<T, P, kVec> x0{tn, x, map.out_plane()};
+  const int pairs1 = tc / P + 2;
+#pragma unroll 1
+  for (int u = threadIdx.x; u < (tr + 2) * pairs1; u += kThreads) {
+    const int i = u / pairs1;
+    const int q = u - i * pairs1;
+    size_t orow;
+    T o[4][P], th0[P];
+    pair_sweep<T, P, kVec>(x0, wnx, wny, b, inv_d, map, k, wrap(r0 - 1 + i),
+                           wrap(c0 - 2 + P * q), orow, o, th0);
+    T* dst = tile + i * lay.ld + P * q;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      dst[j] = th0[j];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) dst[(f + 1) * lay.plane + j] = o[f][j];
+    }
+  }
+  __syncthreads();
+
+  const int pairs2 = tc / P;
+#pragma unroll 1
+  for (int u = threadIdx.x; u < tr * pairs2; u += kThreads) {
+    const int i = u / pairs2;
+    const int m = u - i * pairs2;
+    const int r = r0 + i, c = c0 + P * m;
+    if (r >= n || c >= n) continue;
+    // the windows at tile rows i-1 .. i+1, columns c-1 .. c+2
+    const SharedWindows<T, P> x1{tile, lay.plane, lay.ld,
+                                 i * lay.ld + P * m + 1};
+    size_t orow;
+    T o[4][P], th0[P];
+    pair_sweep<T, P, kVec>(x1, wnx, wny, b, inv_d, map, k, r, c, orow, o,
+                           th0);
+    store_points<T, 4, P, kVec>(out, map.out_plane(), orow, c, n, o);
+  }
+}
+
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -730,6 +917,37 @@ int launch_f_sweep(const T* tn, const T* wnx, const T* wny, const T* x,
                      : &f_sweep_kernel<T, P, false, kSweep>;
   kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       tn, wnx, wny, x, b, inv_d, out, map, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K14's tile by n and type: from n = 512, f32 (8, 128), f64 (16, 64)
+// (at 2048^2 4,096 CTAs, 3 an SM, and 4,096, 1 an SM), else (8, 32) cut
+// to n, so that a level below 512 still spreads over the SMs. Shared
+// memory at most 48,960 bytes (f64, 16 x 64), under the default 48 KB.
+template <typename T>
+void pair_tile(int n, int& tr, int& tc) {
+  const bool big = n >= 512;
+  tr = big ? (sizeof(T) == 4 ? 8 : 16) : (n < 8 ? n : 8);
+  tc = big ? (sizeof(T) == 4 ? 128 : 64) : (n < 32 ? n : 32);
+}
+
+// K14 on the periodic n x n grid, n even; kVec where every plane is
+// 16-byte aligned.
+template <typename T>
+int launch_f_sweep2(const T* tn, const T* wnx, const T* wny, const T* x,
+                    const T* b, const T* inv_d, T* out, int n,
+                    const Coefs<T>& k, void* stream) {
+  if (n < 2 || n % 2) return static_cast<int>(cudaErrorInvalidValue);
+  int tr, tc;
+  pair_tile<T>(n, tr, tc);
+  const dim3 grid((n + tc - 1) / tc, (n + tr - 1) / tr);
+  const bool vec = aligned16(tn) && aligned16(wnx) && aligned16(wny)
+                   && aligned16(x) && aligned16(b) && aligned16(inv_d)
+                   && aligned16(out);
+  auto* kernel = vec ? &f_sweep2_kernel<T, true> : &f_sweep2_kernel<T, false>;
+  kernel<<<grid, PairCTA<T>::kThreads, PairLayout<T>(tr, tc).bytes(),
+           static_cast<cudaStream_t>(stream)>>>(tn, wnx, wny, x, b, inv_d,
+                                                out, GridRows{n}, tr, tc, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -829,6 +1047,13 @@ int launch_staged(const T* tn, const T* wnx, const T* wny, const T* x,
     return launch_f_sweep<T, P, BY, true>(tn, wnx, wny, x, b, inv_d, out,   \
                                           n, COEF_ARGS(T), stream);         \
   }
+#define F_SWEEP2_ENTRY(NAME, T)                                             \
+  extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
+                      const T* b, const T* inv_d, T* out, int n,            \
+                      COEF_PARAMS, void* stream) {                          \
+    return launch_f_sweep2<T>(tn, wnx, wny, x, b, inv_d, out, n,            \
+                              COEF_ARGS(T), stream);                        \
+  }
 #define F_RESIDUAL_ENTRY(NAME, T, P, BY)                                    \
   extern "C" int NAME(const T* tn, const T* wnx, const T* wny, const T* x,  \
                       const T* b, T* out, int n, COEF_PARAMS,               \
@@ -853,6 +1078,9 @@ F_SWEEP_ENTRY(f_sweep_f32, float, 2, 8)
 F_SWEEP_ENTRY(f_sweep_f64, double, 2, 8)
 F_RESIDUAL_ENTRY(f_residual_f32, float, 2, 8)
 F_RESIDUAL_ENTRY(f_residual_f64, double, 2, 8)
+// K14 takes K11's pairs of points (PairCTA, pair_tile).
+F_SWEEP2_ENTRY(f_sweep2_f32, float)
+F_SWEEP2_ENTRY(f_sweep2_f64, double)
 STAGED_ENTRY(a_apply_staged_f32, float, 2)
 STAGED_ENTRY(a_apply_staged_f64, double, 1)
 

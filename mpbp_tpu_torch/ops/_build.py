@@ -53,8 +53,8 @@ _SWEEPS_ARGS = [_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _I32, _P]
 _SPMM_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I64, _P, _P, _P]
 # graph_if_begin: pred, body stream, stream; graph_if_end: stream
 _IF_BEGIN_ARGS = [_P, _P, _P]
-# K11: tn, wnx, wny, x, b, inv_d, out, n, <the 9 scalars>, stream; its
-# residual form without inv_d
+# K11 and K14: tn, wnx, wny, x, b, inv_d, out, n, <the 9 scalars>, stream;
+# K11's residual form without inv_d
 _F_SWEEP_ARGS = [_P] * 7 + [_I32] + [_F64] * 9 + [_P]
 _F_RESIDUAL_ARGS = [_P] * 6 + [_I32] + [_F64] * 9 + [_P]
 # K9: x, b, rowsum, planes, inv_d, out, n, k, offsets (host int pairs),
@@ -91,6 +91,7 @@ SOURCES = {
                       **_both("a_apply_band", _STENCIL3_ARGS),
                       **_both("a_apply_staged", _STENCIL3_ARGS),
                       **_both("f_sweep", _F_SWEEP_ARGS),
+                      **_both("f_sweep2", _F_SWEEP_ARGS),
                       **_both("f_residual", _F_RESIDUAL_ARGS)},
     "mg_stencil": {**_both("p_sweep", _P_SWEEP_ARGS),
                    **_both("p_restrict", _P_RESTRICT_ARGS),

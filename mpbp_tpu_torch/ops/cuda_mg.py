@@ -1,5 +1,5 @@
-"""Kernels K9-K12 (the multigrid's compiled loops): hand-written CUDA for
-Hopper, with their plain PyTorch versions.
+"""Kernels K9-K12 and K14 (the multigrid's compiled loops): hand-written
+CUDA for Hopper, with their plain PyTorch versions.
 
 Under `jit`, XLA fuses each of these pieces of `mpbp_tpu/solvers/
 multigrid.py` into one pass over the grid; eager PyTorch runs them term by
@@ -15,6 +15,10 @@ term (a pressure sweep is 21 launches). Each becomes one launch:
     f_sweep_*/f_residual_*): K1's F x and the epilogue x + inv_d (b - F x)
     (`_vel_smooth`, :368-376) or b - F x (`vel_v_cycle`'s residual), from
     K1's own per-point code.
+  * `f_sweep2` (K14, f_sweep2_*): two K11 sweeps in one launch (two
+    iterations of `_vel_smooth`'s loop), each point by K11's code, the
+    first sweep's x kept on the SM: the bits of two `f_sweep` calls from
+    15 planes read and 4 written, not 30 and 8.
   * `vel_restrict` / `vel_prolong` (K12, vel_restrict_*/vel_prolong_*):
     the MAC face restriction of the stacked (4, n, n) velocity and the face
     prolongation plus correction (`_restrict_vel`, `_prolong_vel`,
@@ -24,7 +28,7 @@ The plain versions are the per-op code the solvers ran before, in the
 same operations and order; the kernels round each operation on its own,
 so on the card they give the plain versions' bits (the 2x2 mean sums as
 PyTorch's CUDA reduction does). K11's plain version is K1 (its wrapper)
-and three PyTorch ops.
+and three PyTorch ops; K14's is K11's twice.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises, after checking device, dtype, shape and
@@ -45,8 +49,8 @@ from mpbp_tpu_torch.ops import _build, cuda_stencil
 from mpbp_tpu_torch.ops.stencil import shift
 
 LAUNCHES = _build.Launches(p_sweep=0, p_restrict=0, p_correct=0,
-                           f_sweep=0, f_residual=0, vel_restrict=0,
-                           vel_prolong=0)
+                           f_sweep=0, f_sweep2=0, f_residual=0,
+                           vel_restrict=0, vel_prolong=0)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # the most off-centre offsets K9 and K10 take (kMaxOffsets in
@@ -149,6 +153,14 @@ def f_sweep_reference(tn, wnx, wny, x, b, inv_d, params: dict, dx: float,
                                                  dx, dy))
 
 
+def f_sweep2_reference(tn, wnx, wny, x, b, inv_d, params: dict, dx: float,
+                       dy: float) -> torch.Tensor:
+    """Plain K14: two plain K11 sweeps."""
+    for _ in range(2):
+        x = f_sweep_reference(tn, wnx, wny, x, b, inv_d, params, dx, dy)
+    return x
+
+
 def f_residual_reference(tn, wnx, wny, x, b, params: dict, dx: float,
                          dy: float) -> torch.Tensor:
     """Plain K11 residual: b - F x, F x by K1's wrapper."""
@@ -227,6 +239,21 @@ def f_sweep(tn, wnx, wny, x, b, inv_d, params: dict, dx: float,
                 (n, *cuda_stencil.coef_args(params, dx, dy)))
 
 
+def f_sweep2(tn, wnx, wny, x, b, inv_d, params: dict, dx: float,
+             dy: float) -> torch.Tensor:
+    """K14: two K11 sweeps, x1 = x + inv_d (b - F x), then x1 + inv_d
+    (b - F x1), on (4, n, n), n even: the bits of two `f_sweep` calls.
+    Kernel on CUDA, plain on CPU."""
+    n = _vel(x, even=True)
+    _check(x, _f_planes(n, tn, wnx, wny)
+           + (("b", b, (4, n, n)), ("inv_d", inv_d, (4, n, n))))
+    return _run("f_sweep2", "fused_stencil",
+                lambda: f_sweep2_reference(tn, wnx, wny, x, b, inv_d, params,
+                                           dx, dy),
+                x, (4, n, n), (tn, wnx, wny, x, b, inv_d),
+                (n, *cuda_stencil.coef_args(params, dx, dy)))
+
+
 def f_residual(tn, wnx, wny, x, b, params: dict, dx: float,
                dy: float) -> torch.Tensor:
     """K11: b - F x on (4, n, n). Kernel on CUDA, plain on CPU."""
@@ -273,7 +300,8 @@ def _vel(x, even: bool = False) -> int:
 
 def _size(n: int, even: bool) -> int:
     if even and n % 2:
-        raise ValueError(f"a grid transfer needs an even n, got {n}")
+        raise ValueError(f"a grid transfer or a sweep pair needs an even "
+                         f"n, got {n}")
     return int(n)
 
 

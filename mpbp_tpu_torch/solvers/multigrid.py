@@ -13,10 +13,11 @@ kernel K1's per-point code.
 
 What XLA fuses into one pass each under `jit` runs as one kernel launch
 each (`ops/cuda_mg.py`): a pressure sweep (K9), the residual's
-restriction and the correction (K10), a velocity
-sweep or residual (K11) and a velocity face transfer (K12). Each level
-keeps its operator's operands for those kernels (`ScalarFlux`, `VelFlux`)
-and inv_d = damping / diag, the smoothers' damping being fixed (0.8, 0.7).
+restriction and the correction (K10), a velocity sweep or residual (K11),
+a pair of velocity sweeps (K14) and a velocity face transfer (K12). Each
+level keeps its operator's operands for those kernels (`ScalarFlux`,
+`VelFlux`) and inv_d = damping / diag, the smoothers' damping being fixed
+(0.8, 0.7).
 
 Every level is built in f64 and then cast, and the coarsest pseudo-inverse
 is computed in f64 on the host and moved to the device once.
@@ -445,11 +446,17 @@ def band_velocity_levels(levels: list[VelLevel], ring) -> list[BandLevel]:
 
 def _vel_smooth(level: VelLevel, b: torch.Tensor, x: torch.Tensor,
                 sweeps: int) -> torch.Tensor:
-    """`sweeps` damped-Jacobi sweeps, one K11 launch each."""
+    """`sweeps` damped-Jacobi sweeps: one K14 launch a pair, one K11 launch
+    for an odd sweep left; the bits of `sweeps` K11 launches. Counts
+    `mg.velocity.sweep_pairs` and `mg.velocity.sweeps` (single sweeps)."""
     f = level.flux
-    for _ in range(sweeps):
-        x = cuda_mg.f_sweep(f.tn, f.wnx, f.wny, x, b, level.inv_d, f.params,
-                            f.dx, f.dy)
+    args = (f.tn, f.wnx, f.wny)
+    for _ in range(sweeps // 2):
+        metrics.count("mg.velocity.sweep_pairs")
+        x = cuda_mg.f_sweep2(*args, x, b, level.inv_d, f.params, f.dx, f.dy)
+    if sweeps % 2:
+        metrics.count("mg.velocity.sweeps")
+        x = cuda_mg.f_sweep(*args, x, b, level.inv_d, f.params, f.dx, f.dy)
     return x
 
 

@@ -8,6 +8,8 @@ n = 16-64):
   * K10 `p_restrict` / `p_correct`: restrict_cell(b - A x),
     x + prolong_cell(ec) (and the solvers' plain mean projection);
   * K11 `f_sweep` / `f_residual`: `_vel_smooth`, b - F x;
+  * K14 `f_sweep2`: two K11 sweeps; `_vel_smooth` runs them in pairs,
+    with the same bits and its counters;
   * K12 `vel_restrict` / `vel_prolong`: `_restrict_vel`, x + `_prolong_vel`;
   * a pressure and a velocity V-cycle, `MGPressureSolver` and
     `MGVelocitySolver`, through the wrappers.
@@ -24,9 +26,11 @@ kernel); `plain()` restores its flag; each C entry point's argtypes match
 its signature.
 
 On the card (`gpu`, skipped here): each kernel bit-equal to its plain
-version at the level sizes of a hierarchy; both MG solvers equal with the
-kernels and with the plain code; a captured IF-graph PC apply with K9-K12
-bit-equal to the eager apply; 40 IF-graph captures in a row, each body
+version at the level sizes of a hierarchy; K14 bit-equal to two K11
+launches at every level 16-2048, aligned and through an offset view;
+both MG solvers equal with the kernels and with the plain code; a
+captured IF-graph PC apply with K9-K12 and K14 bit-equal to the eager
+apply; 40 IF-graph captures in a row, each body
 stream apart from the capture's own (PyTorch's stream pool hands its
 streams out again). JAX is imported inside the tests that
 compare with it, so the `gpu` tests also run where JAX is not installed:
@@ -35,6 +39,7 @@ compare with it, so the `gpu` tests also run where JAX is not installed:
         tests/test_torch_mg_kernels.py
 """
 
+import functools
 import re
 
 import numpy as np
@@ -47,6 +52,7 @@ from mpbp_tpu_torch.models.multiphase import (make_multiphase_operator,
 from mpbp_tpu_torch.ops import _build, cuda_mg
 from mpbp_tpu_torch.solvers import graphs
 from mpbp_tpu_torch.solvers import multigrid as mg
+from mpbp_tpu_torch.utils import metrics
 
 torch.set_num_threads(1)
 
@@ -244,7 +250,8 @@ def test_mg_solvers_match_jax(dtype, kind):
 def test_solvers_call_the_wrappers(kind, monkeypatch):
     """Every sweep, residual and transfer of a solve goes through its
     wrapper: at n=32 the hierarchy has smoothing levels 32, 16
-    (8 is the pseudo-inverse), each cycle 2 + 2 sweeps a level."""
+    (8 is the pseudo-inverse), each cycle 2 + 2 sweeps a level (the
+    velocity MG's as two K14 pairs)."""
     calls = dict.fromkeys(cuda_mg.LAUNCHES, 0)
     for name in calls:
         real = getattr(cuda_mg, name)
@@ -262,9 +269,59 @@ def test_solvers_call_the_wrappers(kind, monkeypatch):
     else:
         solver = mg.MGVelocitySolver.of(op, cycles=2)
         solver(torch.ones(4 * 32 * 32, dtype=F64).cumsum(0))
-        want = dict(f_sweep=2 * 2 * 4, f_residual=2 * 2, vel_restrict=2 * 2,
-                    vel_prolong=2 * 2)
+        want = dict(f_sweep2=2 * 2 * 2, f_residual=2 * 2,
+                    vel_restrict=2 * 2, vel_prolong=2 * 2)
     assert {k: v for k, v in calls.items() if v} == want
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4])
+def test_vel_smooth_pairs_are_k11_sweeps(sweeps):
+    """`_vel_smooth` runs sweeps // 2 K14 pairs and one K11 sweep for an odd
+    one left, bit-equal to `sweeps` K11 sweeps, and counts both."""
+    op = make_multiphase_operator(32, eta_n=100.0, device="cpu", dtype=F32)
+    level = mg.build_velocity_mg(op)[0]
+    f = level.flux
+    b = torch.as_tensor(seeded((4, 32, 32), 20), dtype=F32)
+    x = torch.as_tensor(seeded((4, 32, 32), 21), dtype=F32)
+    want = x
+    for _ in range(sweeps):
+        want = cuda_mg.f_sweep(f.tn, f.wnx, f.wny, want, b, level.inv_d,
+                               f.params, f.dx, f.dy)
+    with metrics.tracing() as trace:
+        got = mg._vel_smooth(level, b, x, sweeps)
+    assert torch.equal(got, want)
+    counts = {k: v for k, v in trace.counters.items()
+              if k.startswith("mg.velocity.")}
+    assert counts == {k: v for k, v in (
+        ("mg.velocity.sweep_pairs", sweeps // 2),
+        ("mg.velocity.sweeps", sweeps % 2)) if v}
+
+
+def test_v_cycle_counts_two_pairs_a_level():
+    """A one-cycle velocity MG at n=32 (smoothing levels 32, 16) runs a
+    pre and a post pair at each level, and no single sweep."""
+    op = make_multiphase_operator(32, eta_n=100.0, device="cpu", dtype=F32)
+    solver = mg.MGVelocitySolver.of(op, cycles=1)
+    with metrics.tracing() as trace:
+        solver(torch.ones(4 * 32 * 32, dtype=F32).cumsum(0))
+    assert trace.counters["mg.velocity.sweep_pairs"] == 2 * 2
+    assert "mg.velocity.sweeps" not in trace.counters
+
+
+def test_hybrid_solve_runs_its_velocity_sweeps_in_pairs():
+    """In the n=16 hybrid lsc_mg_full solve (eager on the CPU; one
+    smoothed velocity level, 16, above the 8 x 8 pseudo-inverse) every
+    velocity V-cycle runs two K14 pairs and no single K11 sweep."""
+    from mpbp_tpu_torch.drivers import solve_multiphase
+
+    with metrics.tracing() as trace:
+        rep = solve_multiphase(n=16, eta_n=100.0, pc="lsc_mg_full",
+                               precision="hybrid", tol=1e-8, maxiter=100,
+                               inner_tol=1e-4, inner_iters=40, device="cpu")
+    cycles = sum(sp.name == "mg.velocity" for sp in trace.spans)
+    assert rep.converged and cycles > 0
+    assert trace.counters["mg.velocity.sweep_pairs"] == 2 * cycles
+    assert "mg.velocity.sweeps" not in trace.counters
 
 
 def test_levels_keep_inv_d():
@@ -317,6 +374,8 @@ def _args(name: str, device: str, fault: str | None = None):
         "p_correct": (x, t(N // 2, N // 2 - (fault == "shape"))),
         "f_sweep": (plane, t(N, N), t(N, N), x, t(4, N, N), t(4, N, N),
                     PARAMS, 0.1, 0.1),
+        "f_sweep2": (plane, t(N, N), t(N, N), x, t(4, N, N), t(4, N, N),
+                     PARAMS, 0.1, 0.1),
         "f_residual": (plane, t(N, N), t(N, N), x, t(4, N, N), PARAMS, 0.1,
                        0.1),
         "vel_restrict": (x[:, :-1] if fault == "shape" else x,),
@@ -344,6 +403,13 @@ def test_right_calls_reach_the_device_check(name):
     with cuda_mg.plain():        # the plain version takes the same call
         out = getattr(cuda_mg, name)(*_args(name, "cpu"))
     assert out.dtype == F64
+
+
+def test_sweep_pair_needs_an_even_n():
+    x = torch.zeros((4, 7, 7), dtype=F64)
+    plane = torch.zeros((7, 7), dtype=F64)
+    with pytest.raises(ValueError, match="even n"):
+        cuda_mg.f_sweep2(plane, plane, plane, x, x, x, PARAMS, 0.1, 0.1)
 
 
 def test_offsets_are_checked():
@@ -408,6 +474,8 @@ def _kernel_calls(levels, vlevels, dev, dtype, seed=0):
         calls += [
             ("f_sweep", lambda x=x, b=b, f=f, lv=lv: cuda_mg.f_sweep(
                 f.tn, f.wnx, f.wny, x, b, lv.inv_d, f.params, f.dx, f.dy)),
+            ("f_sweep2", lambda x=x, b=b, f=f, lv=lv: cuda_mg.f_sweep2(
+                f.tn, f.wnx, f.wny, x, b, lv.inv_d, f.params, f.dx, f.dy)),
             ("f_residual", lambda x=x, b=b, f=f: cuda_mg.f_residual(
                 f.tn, f.wnx, f.wny, x, b, f.params, f.dx, f.dy)),
             ("vel_restrict", lambda x=x: cuda_mg.vel_restrict(x)),
@@ -435,6 +503,55 @@ def test_kernels_are_bit_equal_to_plain(cuda_device, dtype, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_f_sweep2_is_two_f_sweeps(cuda_device, dtype, layout):
+    """K14 against two K11 launches at every level 2048 .. 16 of a velocity
+    hierarchy, bit for bit: on 16-byte aligned planes (the vector path) and
+    with x an offset view (the unaligned fallback)."""
+    levels = mg.build_velocity_mg(make_multiphase_operator(
+        2048, eta_n=100.0, dtype=dtype, device=cuda_device))
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    for lv in levels[:-1]:
+        n, f = lv.n, lv.flux
+        x, b = (torch.randn((4, n, n), generator=gen, dtype=dtype,
+                            device=cuda_device) for _ in range(2))
+        if layout == "offset":
+            flat = torch.empty(4 * n * n + 1, dtype=dtype, device=cuda_device)
+            x = flat[1:].view(4, n, n).copy_(x)
+        sweep = functools.partial(cuda_mg.f_sweep, f.tn, f.wnx, f.wny)
+        want = sweep(sweep(x, b, lv.inv_d, f.params, f.dx, f.dy), b,
+                     lv.inv_d, f.params, f.dx, f.dy)
+        before = cuda_mg.LAUNCHES["f_sweep2"]
+        got = cuda_mg.f_sweep2(f.tn, f.wnx, f.wny, x, b, lv.inv_d, f.params,
+                               f.dx, f.dy)
+        torch.cuda.synchronize()
+        assert cuda_mg.LAUNCHES["f_sweep2"] == before + 1
+        assert torch.equal(got, want), (n, float((got - want).abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_f_sweep2_at_even_n_no_hierarchy_has(cuda_device, dtype):
+    """K14's tiles cut to the grid and past its edge (n not a multiple of
+    the tile's rows or columns): two K11 launches' bits on seeded planes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    for n in (2, 6, 34, 50, 514, 1000):
+        def r(*shape):
+            return torch.rand(shape, generator=gen, dtype=dtype,
+                              device=cuda_device)
+        tn, wnx, wny = 0.2 + 0.6 * r(n, n), r(n, n), r(n, n)
+        x, b, inv_d = r(4, n, n), r(4, n, n), 1e-3 * r(4, n, n)
+        sweep = functools.partial(cuda_mg.f_sweep, tn, wnx, wny)
+        h = 1.0 / n
+        want = sweep(sweep(x, b, inv_d, PARAMS, h, h), b, inv_d, PARAMS, h,
+                     h)
+        got = cuda_mg.f_sweep2(tn, wnx, wny, x, b, inv_d, PARAMS, h, h)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (n, float((got - want).abs().max()))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["pressure", "velocity"])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_mg_solvers_equal_with_kernels_and_plain(cuda_device, dtype, kind):
@@ -455,9 +572,10 @@ def test_mg_solvers_equal_with_kernels_and_plain(cuda_device, dtype, kind):
 @pytest.mark.gpu
 def test_graphed_apply_with_mg_kernels_is_eager(cuda_device):
     """The n=64 hybrid lsc_mg_full PC as an IF graph: replays bit-equal to
-    the eager apply, each replay counting the eager apply's K9-K12
-    launches; the plain-code graph (captured inside `plain()`) gives the
-    same bits with none."""
+    the eager apply, each replay counting the eager apply's K9-K12 and
+    K14 launches (its velocity sweeps all in K14 pairs, none a single
+    K11); the plain-code graph (captured inside `plain()`) gives the same
+    bits with none."""
     kw = dict(eta_n=100.0, device=cuda_device)
     M = make_preconditioner_mixed(make_multiphase_operator(64, **kw),
                                   make_multiphase_operator(
@@ -473,7 +591,8 @@ def test_graphed_apply_with_mg_kernels_is_eager(cuda_device):
     torch.cuda.synchronize()
     per_replay = {k: cuda_mg.LAUNCHES[k] - counted[k] for k in counted}
     assert torch.equal(replayed, eager)
-    assert per_replay == per_eager and all(per_eager.values())
+    assert per_replay == per_eager and per_eager.pop("f_sweep") == 0
+    assert all(per_eager.values())
     with cuda_mg.plain():
         gp = graphs.GraphedApply(M)
         gp(v)
